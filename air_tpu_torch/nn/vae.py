@@ -1,0 +1,30 @@
+"""Single-window VAE.
+
+Counterpart of ``air_tpu/nn/vae.py``: softplus recognition MLP -> diagonal
+Gaussian, reparameterized latent, softplus generative MLP -> Gaussian
+likelihood with a fixed std whose noise is added before the sigmoid even at
+eval. The exposed latent is the recognition MEAN, not the sample. Both
+noises are arguments, so the same draws can be fed to both packages.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from air_tpu_torch.nn.layers import dense_apply, mlp_apply
+
+
+def vae_apply(params: dict, inputs: torch.Tensor, latent_eps: torch.Tensor,
+              out_noise: torch.Tensor, likelihood_std=0.0,
+              activation=F.softplus):
+    """Returns (reconstruction, rec_mean, rec_log_variance, latent)."""
+    h = mlp_apply(params["rec"], inputs, activation)
+    rec_mean = dense_apply(params["rec_mean"], h)
+    rec_log_variance = dense_apply(params["rec_log_variance"], h)
+    rec_sample = rec_mean + latent_eps * torch.sqrt(torch.exp(rec_log_variance))
+
+    h = mlp_apply(params["gen"], rec_sample, activation)
+    gen_mean = dense_apply(params["gen_mean"], h)
+    reconstruction = torch.sigmoid(gen_mean + out_noise * likelihood_std)
+    return reconstruction, rec_mean, rec_log_variance, rec_mean

@@ -1,0 +1,145 @@
+"""The port's serving facade (air_tpu_torch.serve.model_wrapper) on the
+shipped CNN checkpoint, held against the JAX package's ModelWrapper, and
+the committed serving fixture held against the JAX package's generator."""
+
+import os
+
+import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py pins it)
+import numpy as np
+import pytest
+import torch
+
+from air_tpu.data import MultiMNISTConfig, generate_dataset, get_mnist
+from air_tpu.models.config import DEFAULT_TRAINING_CONFIG as JAX_CFG
+from air_tpu.serve.model_wrapper import ModelWrapper as JaxWrapper
+from air_tpu.train.checkpoint import load_params as jax_load_params
+from air_tpu_torch.kernels import st_inline
+from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG as CFG
+from air_tpu_torch.serve.model_wrapper import ModelWrapper
+from air_tpu_torch.train.checkpoint import checkpoint_arch, load_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CNN_CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
+FIXTURE = os.path.join(REPO, "air_tpu_torch", "assets", "serve_canvases.npz")
+
+
+def make_serve_canvases():
+    """The 60 test canvases of tests/test_shipped_model.py's CNN check:
+    (canvases [60, 2500] float32, digit counts [60] int32)."""
+    digits, labels, _ = get_mnist("/nonexistent-dir", n_synthetic=300, seed=11)
+    data = generate_dataset(
+        digits, labels,
+        MultiMNISTConfig(max_digits=2, max_in_common=2, images_per_digit=40,
+                         test_set_size=60, canvas_size=50, seed=11),
+        out_dir=None)
+    return (np.asarray(data["test"]["images"], np.float32).reshape(-1, 2500),
+            np.asarray(data["test"]["digits"], np.int32))
+
+
+def write_fixture(path=FIXTURE):
+    canvases, digits = make_serve_canvases()
+    np.savez_compressed(path, canvases=canvases, digits=digits)
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    with np.load(FIXTURE) as z:
+        return z["canvases"], z["digits"]
+
+
+@pytest.fixture(scope="module")
+def config():
+    return CFG.replace(**checkpoint_arch(CNN_CKPT), st_impl="inline")
+
+
+@pytest.fixture(scope="module")
+def wrapper(config):
+    return ModelWrapper(config, load_params(CNN_CKPT), seed=0, device="cpu")
+
+
+def test_fixture_matches_generator(fixture):
+    canvases, digits = make_serve_canvases()
+    np.testing.assert_array_equal(fixture[0], canvases)
+    np.testing.assert_array_equal(fixture[1], digits)
+    assert fixture[0].shape == (60, 2500) and fixture[0].dtype == np.float32
+
+
+def test_infer_counts_digits(wrapper, fixture):
+    """The bar of tests/test_shipped_model.py's CNN check: >= 0.9."""
+    canvases, truth = fixture
+    st_inline.reset_launches()
+    digits = wrapper.infer(canvases)[0]
+    acc = float(np.mean(np.asarray(digits) == truth))
+    assert acc >= 0.9, f"port's shipped CNN checkpoint accuracy {acc}"
+    # on CPU tensors the wrappers take the plain versions: no launch
+    assert st_inline.LAUNCHES == {"inline_attention_read": 0,
+                                  "inline_write_accumulate": 0}
+
+
+@pytest.mark.parametrize("n", [1, 5, 60])
+def test_infer_structure_matches_jax(wrapper, fixture, n):
+    """Same structure, types and lengths as the JAX wrapper's returns. The
+    two draw different noise, so each item is checked against its own
+    digit count."""
+    jax_wrapper = JaxWrapper(
+        JAX_CFG.replace(cnn=True, st_impl="inline"),
+        jax_load_params(CNN_CKPT))
+    images = fixture[0][:n]
+    got, want = wrapper.infer(images), jax_wrapper.infer(images)
+    assert len(got) == len(want) == 6
+    for g_list, w_list in zip(got, want):
+        assert type(g_list) is type(w_list) and len(g_list) == len(w_list) == n
+    ws, L = 28, 50
+    for i in range(n):
+        for out in (got, want):
+            d = out[0][i]
+            assert isinstance(d, int)
+            assert out[1][i].shape == ((d, 3) if d else (0,))
+            assert out[2][i].shape == (50, 50)
+            assert out[3][i].shape == ((d, ws, ws) if d else (0,))
+            assert out[4][i].shape == ((d, L) if d else (0,))
+        for k in (1, 2, 3, 4, 5):
+            assert type(got[k][i]) is type(want[k][i])
+            assert np.asarray(got[k][i]).dtype == np.asarray(want[k][i]).dtype
+
+
+def test_infer_batch_trims_to_items(wrapper, fixture):
+    out = wrapper.infer_batch(fixture[0][:5])
+    assert out.rec_num_digits.shape == (5,)
+    assert out.rec_windows.shape == (5, 3, 784)
+    assert out.reconstruction.shape == (5, 2500)
+    assert np.isfinite(out.loss) and out.loss.shape == ()
+    assert out.accuracy == np.float32(np.mean(out.rec_num_digits == 0))
+
+
+def test_same_seed_same_answers(config, fixture):
+    params = load_params(CNN_CKPT)
+    a = ModelWrapper(config, params, seed=3, device="cpu")
+    b = ModelWrapper(config.replace(st_impl="xla"), params, seed=3,
+                     decoder_layout="scan", device="cpu")
+    for n in (1, 8):
+        ga, gb = a.infer(fixture[0][:n]), b.infer(fixture[0][:n])
+        assert ga[0] == gb[0]
+        np.testing.assert_allclose(np.stack(ga[2]), np.stack(gb[2]),
+                                   rtol=0, atol=1e-5)
+
+
+def test_xla_serving_needs_stepparallel_slice():
+    """The JAX wrapper serves st_impl='xla' step-parallel; the port has no
+    step-parallel decoder yet and says so."""
+    with pytest.raises(NotImplementedError, match="stepparallel"):
+        ModelWrapper(CFG.replace(cnn=True), load_params(CNN_CKPT),
+                     device="cpu")
+
+
+def test_empty_request_is_refused(wrapper):
+    with pytest.raises(ValueError, match="no images"):
+        wrapper.infer(np.zeros((0, 2500), np.float32))
+
+
+def test_default_device_is_cuda(config):
+    """No silent CPU fallback: without a card the default device fails."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device works")
+    with pytest.raises((RuntimeError, AssertionError)):
+        ModelWrapper(config, load_params(CNN_CKPT))
