@@ -29,10 +29,10 @@ import torch
 from air_tpu_torch.kernels.st_inline import (inline_attention_read,
                                              inline_write_accumulate)
 from air_tpu_torch.models.config import AIRConfig
-from air_tpu_torch.nn.cnn import cnn_apply
-from air_tpu_torch.nn.layers import two_layer_head_apply
-from air_tpu_torch.nn.lstm import lstm_apply, lstm_zero_state
-from air_tpu_torch.nn.vae import vae_apply
+from air_tpu_torch.nn.cnn import cnn_apply, cnn_init
+from air_tpu_torch.nn.layers import two_layer_head_apply, two_layer_head_init
+from air_tpu_torch.nn.lstm import lstm_apply, lstm_init, lstm_zero_state
+from air_tpu_torch.nn.vae import vae_apply, vae_init
 from air_tpu_torch.ops.concrete import (concrete_binary_kl_mc_sample,
                                         concrete_binary_pre_sigmoid_sample)
 from air_tpu_torch.ops.gaussian import gaussian_kl, sample_from_mvn
@@ -82,6 +82,53 @@ def check_supported(config: AIRConfig) -> None:
     if config.rnn_input_hoist:
         raise NotImplementedError(
             "rnn_input_hoist comes with the throughput-layouts slice")
+
+
+def init_air_params(generator: torch.Generator, config: AIRConfig,
+                    background_init=None) -> dict:
+    """The AIR parameter tree, with the keys, shapes and dtypes of the JAX
+    package's ``init_air_params``, drawn from ``generator`` on its device
+    (convolution weights OIHW).
+
+    ``background_init``: optional [canvas**2] (or [canvas, canvas]) pixel-
+    space background estimate in [0, 1] for ``learn_background``, stored as
+    its logit after clipping to [1e-3, 1 - 1e-3]; without it the background
+    starts at -4 (sigmoid(-4) ~= 0.018, an almost blank canvas)."""
+    gen = generator
+    units, ws2 = config.rnn_units, config.windows_size ** 2
+    params = {
+        "lstm": lstm_init(gen, config.rnn_input_dim, units),
+        "scale_mean": two_layer_head_init(gen, units,
+                                          config.scale_hidden_units, 1),
+        "scale_log_variance": two_layer_head_init(
+            gen, units, config.scale_hidden_units, 1),
+        "shift_mean": two_layer_head_init(gen, units,
+                                          config.shift_hidden_units, 2),
+        "shift_log_variance": two_layer_head_init(
+            gen, units, config.shift_hidden_units, 2),
+        "z_pres_log_odds": two_layer_head_init(
+            gen, units, config.z_pres_hidden_units, 1),
+        "vae": vae_init(gen, ws2, config.vae_recognition_units,
+                        config.vae_latent_dimensions,
+                        config.vae_generative_units),
+    }
+    if config.cnn:
+        params["cnn"] = cnn_init(gen, config.cnn_filters)
+    if config.learn_background:
+        n = config.canvas_size ** 2
+        if background_init is not None:
+            bg = torch.as_tensor(background_init, dtype=torch.float32,
+                                 device=gen.device).reshape(-1)
+            if bg.shape[0] != n:
+                raise ValueError(f"background_init has {bg.shape[0]} "
+                                 f"pixels, expected {n}")
+            bg = torch.clamp(bg, 1e-3, 1.0 - 1e-3)
+            params["background"] = torch.log(bg) - torch.log1p(-bg)
+        else:
+            params["background"] = torch.full((n,), -4.0,
+                                              dtype=torch.float32,
+                                              device=gen.device)
+    return params
 
 
 def draw_noise(config: AIRConfig, batch: int, generator=None,

@@ -10,8 +10,31 @@ laid out that way.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+from air_tpu_torch.nn.layers import uniform
+
+
+def _conv_init(generator: torch.Generator, kh: int, kw: int, c_in: int,
+               c_out: int) -> dict:
+    """OIHW weight, glorot-uniform over the receptive field, zero bias."""
+    limit = math.sqrt(6.0 / (kh * kw * c_in + kh * kw * c_out))
+    return {
+        "w": uniform(generator, (c_out, c_in, kh, kw), limit),
+        "b": torch.zeros((c_out,), dtype=torch.float32,
+                         device=generator.device),
+    }
+
+
+def cnn_init(generator: torch.Generator, filters: int) -> dict:
+    return {
+        "conv1": _conv_init(generator, 5, 5, 1, filters),
+        "conv2": _conv_init(generator, 5, 5, filters, filters),
+        "conv3": _conv_init(generator, 5, 5, filters, filters),
+    }
 
 
 def _conv2d_same_relu(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,16 @@ from __future__ import annotations
 
 import torch
 
+from air_tpu_torch.nn.layers import glorot_uniform
+
+
+def lstm_init(generator: torch.Generator, input_dim: int, units: int) -> dict:
+    return {
+        "kernel": glorot_uniform(generator, (input_dim + units, 4 * units)),
+        "bias": torch.zeros((4 * units,), dtype=torch.float32,
+                            device=generator.device),
+    }
+
 
 def lstm_zero_state(batch_size: int, units: int, device) -> tuple:
     zeros = torch.zeros((batch_size, units), dtype=torch.float32,

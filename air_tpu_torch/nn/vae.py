@@ -12,7 +12,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from air_tpu_torch.nn.layers import dense_apply, mlp_apply
+from air_tpu_torch.nn.layers import (dense_apply, dense_init, mlp_apply,
+                                     mlp_init)
+
+
+def vae_init(generator: torch.Generator, input_dim: int, rec_hidden_units,
+             latent_dim: int, gen_hidden_units) -> dict:
+    rec_dims, gen_dims = list(rec_hidden_units), list(gen_hidden_units)
+    return {
+        "rec": mlp_init(generator, input_dim, rec_dims),
+        "rec_mean": dense_init(generator, rec_dims[-1], latent_dim),
+        "rec_log_variance": dense_init(generator, rec_dims[-1], latent_dim),
+        "gen": mlp_init(generator, latent_dim, gen_dims),
+        "gen_mean": dense_init(generator, gen_dims[-1], input_dim),
+    }
 
 
 def vae_apply(params: dict, inputs: torch.Tensor, latent_eps: torch.Tensor,

@@ -1,22 +1,159 @@
-"""Eval step (the training step comes with the next slice of the port).
+"""Train, eval and eval-summary steps.
 
-Counterpart of ``make_eval_step`` in ``air_tpu/train/steps.py``: the forward
-pass with ``train=False`` (z_pres rounded) and the annealed hyperparameters
-resolved at ``step``.
+Counterpart of ``air_tpu/train/steps.py``. The train step is one training
+iteration of the reference: the annealed hyperparameters resolved at the
+state's own global step, the optional background composite, the forward
+pass, the backward pass, the optimizer (``train/state.py``), and the
+metrics. PyTorch runs it eagerly; with ``st_impl="inline"`` the attention
+read and the write-accumulate run their hand-written kernels forward and
+backward on the card.
+
+Every random draw of a train step comes from a ``torch.Generator`` on the
+parameters' device seeded from ``(state.seed, state.step)``, the counterpart
+of ``fold_in(key, step)``; the ``noise`` argument overrides it (the tests
+feed JAX's draws).
 """
 
 from __future__ import annotations
 
 import torch
 
-from air_tpu_torch.models.air import AIROutputs, air_forward
+from air_tpu_torch.models.air import (AIROutputs, _full_fp32, air_forward,
+                                      draw_noise)
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.ops.schedules import resolve_annealed
+from air_tpu_torch.train.metrics import summarize_outputs
+from air_tpu_torch.train.state import (TrainState, apply_updates,
+                                       clip_by_global_norm, global_norm,
+                                       make_optimizer)
+from air_tpu_torch.tree import (path_name, tree_leaves,
+                                tree_leaves_with_path, tree_map,
+                                tree_unflatten)
+
+
+def bg_intensity(schedule: dict | None, step) -> torch.Tensor:
+    """Background-curriculum intensity ``s(step)``, float32: 0 until
+    ``start``, then a linear ramp over ``ramp`` steps up to ``target``
+    (``ramp`` 0 jumps)."""
+    schedule = schedule or {}
+    f32 = dict(dtype=torch.float32)
+    target = torch.tensor(float(schedule.get("target", 1.0)), **f32)
+    start = float(schedule.get("start", 0))
+    ramp = float(schedule.get("ramp", 0))
+    step = torch.tensor(step, **f32)
+    if ramp > 0:
+        frac = torch.clamp((step - start) / ramp, 0.0, 1.0)
+    else:
+        frac = (step >= start).to(torch.float32)
+    return target * frac
+
+
+def _splitmix64(x: int) -> int:
+    mask = (1 << 64) - 1
+    z = (x + 0x9E3779B97F4A7C15) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return z ^ (z >> 31)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one train step's draws, from (seed, step). The pair
+    is hashed to 64 bits: the CPU generator keeps only the low 32 bits of
+    its seed."""
+    mixed = _splitmix64(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def make_train_step(config: AIRConfig, bg_image=None,
+                    bg_schedule: dict | None = None,
+                    with_grad_stats: bool = False, pmean_axis=None,
+                    schedules_fn=None):
+    """Returns ``train_step(state, images, targets, noise=None) ->
+    (new_state, metrics)``; ``state`` is left unchanged.
+
+    ``bg_image`` (a [canvas**2] full-intensity texture) composites each
+    batch as ``clip(images + s(step) * bg, 0, 1)`` with ``s`` from
+    ``bg_schedule`` (``bg_intensity``); it needs an explicit schedule.
+    ``with_grad_stats`` adds per-variable norms and means of the gradients
+    before and after the clip, and the gradients themselves
+    (``metrics["grad_tensors"]``)."""
+    if pmean_axis is not None or schedules_fn is not None:
+        raise NotImplementedError(
+            "pmean_axis and schedules_fn come with the multi-GPU and "
+            "seed-parallel slices of the port")
+    if bg_image is not None and bg_schedule is None:
+        raise ValueError("bg_image requires an explicit bg_schedule "
+                         "({'target': s, 'start': 0, 'ramp': 0} for a "
+                         "constant composite)")
+    optimizer = make_optimizer(config)
+
+    def train_step(state: TrainState, images, targets, noise=None):
+        step = state.step
+        device = tree_leaves(state.params)[0].device
+        images = torch.as_tensor(images, dtype=torch.float32, device=device)
+        targets = torch.as_tensor(targets, device=device)
+        if bg_image is not None:
+            bg = torch.as_tensor(bg_image, dtype=torch.float32,
+                                 device=device).reshape(-1)
+            s = bg_intensity(bg_schedule, step)
+            images = torch.clamp(images + s * bg[None, :], 0.0, 1.0)
+        hp = resolve_annealed(config.schedules, config.annealable_defaults(),
+                              step)
+        if noise is None:
+            noise = draw_noise(config, images.shape[0],
+                               step_generator(state.seed, step, device),
+                               device)
+
+        params = tree_map(lambda p: p.detach().requires_grad_(True),
+                          state.params)
+        out = air_forward(params, config, images, targets, train=True,
+                          hparams=hp, noise=noise)
+        if device.type == "cuda":
+            _full_fp32()      # the backward's products too: no TF32
+        grads = tree_unflatten(params, torch.autograd.grad(
+            out.loss, tree_leaves(params)))
+        updates, opt_state = optimizer.update(grads, state.opt_state)
+        new_state = state.replace(
+            params=apply_updates(state.params, updates),
+            opt_state=opt_state, step=step + 1)
+        metrics = {
+            "loss": out.loss.detach(),
+            "accuracy": out.accuracy,
+            "reconstruction_loss": out.reconstruction_loss.detach().mean(),
+            "kl_loss": out.kl_loss.detach().mean(),
+            "grad_norm": global_norm(grads),
+            "z_pres_prior_log_odds": torch.as_tensor(
+                hp["z_pres_prior_log_odds"], dtype=torch.float32),
+        }
+        if bg_image is not None:
+            metrics["bg_intensity"] = bg_intensity(bg_schedule, step)
+        if with_grad_stats:
+            clipped = grads
+            if config.gradient_clipping_norm is not None:
+                clipped = clip_by_global_norm(grads,
+                                              config.gradient_clipping_norm)
+            gstats = {}
+            for (path, g), gc in zip(tree_leaves_with_path(grads),
+                                     tree_leaves(clipped)):
+                name = path_name(path)
+                gstats[name + "_grad_original_norm"] = torch.linalg.norm(
+                    g.ravel())
+                gstats[name + "_grad_original_avg"] = torch.mean(g)
+                gstats[name + "_grad_applied_norm"] = torch.linalg.norm(
+                    gc.ravel())
+                gstats[name + "_grad_applied_avg"] = torch.mean(gc)
+            metrics["grad_stats"] = gstats
+            metrics["grad_tensors"] = {"original": grads, "applied": clipped}
+        return new_state, metrics
+
+    return train_step
 
 
 def make_eval_step(config: AIRConfig):
     """Returns ``eval_step(params, images, targets, step, generator=None,
-    noise=None) -> AIROutputs``, run without autograd."""
+    noise=None) -> AIROutputs``: the forward pass with ``train=False``
+    (z_pres rounded) and the annealed hyperparameters resolved at ``step``,
+    run without autograd."""
 
     def eval_step(params, images, targets, step, generator=None,
                   noise=None) -> AIROutputs:
@@ -27,3 +164,19 @@ def make_eval_step(config: AIRConfig):
                                hparams=hp, noise=noise, generator=generator)
 
     return eval_step
+
+
+def make_eval_summary_step(config: AIRConfig):
+    """Returns ``eval_summary(params, images, targets, step, generator=None,
+    noise=None) -> dict``: the eval forward and the reference's scalar
+    summaries (``summarize_outputs``), 0-d tensors on the device."""
+    eval_fn = make_eval_step(config)
+
+    def eval_summary(params, images, targets, step, generator=None,
+                     noise=None) -> dict:
+        out = eval_fn(params, images, targets, step, generator=generator,
+                      noise=noise)
+        return summarize_outputs(out, targets, config.max_steps,
+                                 config.max_digits)
+
+    return eval_summary

@@ -10,20 +10,40 @@ limit as nvidia-smi reports them:
   2. build    nvcc builds the kernels into air_tpu_torch/_build/; prints the
               seconds and the -Xptxas -v register / shared-memory report.
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              B = 64, 1 and 7 (max abs diff <= 1e-5).
+              B = 64, 1 and 7: the forward kernels and the backward kernels'
+              matrix cotangents to max abs diff 1e-5, the backward kernels'
+              scalar cotangents to 1e-4 * max(1, |plain|).
   4. serve    ModelWrapper on the shipped CNN checkpoint with st_impl="inline"
               answers 1, 8 and 60 canvases of the committed fixture; every
-              infer call launches each kernel max_steps times; digit-count
-              accuracy >= 0.9; the same requests through the plain versions
-              agree (reconstructions to 1e-4, digit counts exactly).
-  5. times    device time per launch of each kernel, its plain version and a
-              PyTorch matmul yardstick at B = 64 (CUDA graphs of back-to-back
+              infer call launches each forward kernel max_steps times and no
+              backward kernel; digit-count accuracy >= 0.9; the same requests
+              through the plain versions agree (reconstructions to 1e-4,
+              digit counts exactly).
+  5. train    the training step of DEFAULT_TRAINING_CONFIG with cnn=True and
+              st_impl="inline" at full width, batch 64 (the 60 fixture
+              canvases and their first 4 again), from create_train_state
+              (seed 0). Step 0 through the kernels against step 0 through the
+              plain path (st_impl="xla") at the same params and draws: loss
+              and grad_norm to 1e-4 relative, every gradient leaf to 1e-4 *
+              max(1, max |leaf|). Then TRAIN_STEPS steps through the kernels
+              (the main path): each step launches each of the four kernels
+              max_steps times, every loss is finite, every parameter leaf
+              moves, and the mean reconstruction loss of the last 5 steps is
+              below that of the first 5. The eval summaries of the trained
+              state are finite wherever their slice is non-empty, and
+              save_checkpoint / load_checkpoint (in a temporary directory)
+              round-trip params, moments and step bit for bit.
+  6. times    device time per launch of each kernel, its plain version and a
+              PyTorch yardstick at B = 64 (CUDA graphs of back-to-back
               launches, timed with CUDA events), the bound from the published
-              H100 SXM peaks, and the infer latency for 1 and 64 canvases.
+              H100 SXM peaks; the infer latency for 1 and 64 canvases; the
+              train step (median of 10, host clock, each ending in a
+              synchronize) through the kernels and through the plain path.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
-result line is printed. Nothing is written outside air_tpu_torch/_build/.
+result line is printed. Nothing is written outside air_tpu_torch/_build/ and
+a temporary directory that is removed.
 """
 
 from __future__ import annotations
@@ -32,16 +52,24 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from air_tpu_torch.kernels import build, st_inline
+from air_tpu_torch.models.air import draw_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
 from air_tpu_torch.serve.model_wrapper import ModelWrapper
-from air_tpu_torch.train.checkpoint import checkpoint_arch, load_params
+from air_tpu_torch.train.checkpoint import (checkpoint_arch, load_checkpoint,
+                                            load_params, save_checkpoint)
+from air_tpu_torch.train.metrics import summarize_outputs
+from air_tpu_torch.train.state import create_train_state
+from air_tpu_torch.train.steps import (make_eval_step, make_train_step,
+                                       step_generator)
+from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
@@ -51,10 +79,19 @@ DEVICE = "cuda"
 
 TIME_BUDGET_S = 180.0
 KERNEL_TOL = 1e-5       # kernel vs plain version, fp32 FMA in both
+SCALAR_TOL = 1e-4       # backward scalar cotangents, x max(1, |plain|)
 PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
+GRAD_TOL = 1e-4         # train step 0, kernels vs plain path
 MIN_ACCURACY = 0.9      # the bar of the JAX package's shipped-model test
 BATCH = 64              # the serving bucket of the 60-canvas request
 CS, WS = 50, 28
+# steps of the main path's training run: the JAX package at this config on
+# the same 64 canvases lowers the mean reconstruction loss of the last 5
+# steps by 16-24% below that of the first 5 in 60 steps (seeds 0 and 1),
+# less reliably in 30-40 (PERF.md)
+TRAIN_STEPS = 60
+FWD = ("inline_attention_read", "inline_write_accumulate")
+BWD = ("inline_attention_read_bwd", "inline_write_accumulate_bwd")
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -97,25 +134,64 @@ def kernel_inputs(b: int, seed: int) -> dict:
         s=s, x=x, y=y)
 
 
-def run_read(d):
-    return st_inline.inline_attention_read(d["img"], d["s"], d["x"], d["y"],
-                                           WS)
+def core_inputs(d: dict, seed: int) -> dict:
+    """The per-axis scalars (a, c) as the wrappers form them from (s, x, y),
+    and random output cotangents of the read [B, ws, ws] and of the write
+    [B, cs, cs]."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    b = d["s"].shape[0]
+    inv_s = 1.0 / d["s"]
+    return dict(
+        read=(d["s"], d["y"], d["s"], d["x"]),
+        write=(inv_s, -d["y"] * inv_s, inv_s, -d["x"] * inv_s),
+        g_read=torch.randn((b, WS, WS), generator=gen, device=DEVICE),
+        g_write=torch.randn((b, CS, CS), generator=gen, device=DEVICE))
 
 
-def run_read_plain(d):
-    return st_inline.attention_read_plain(d["img"], d["s"], d["x"], d["y"],
-                                          WS)
+def run_read(d, e):
+    return st_inline.attention_read_fwd(d["img"], *e["read"], WS)
 
 
-def run_write(d):
-    return st_inline.inline_write_accumulate(
-        d["canvas"], d["win"], d["s"], d["x"], d["y"], d["coeff"], CS)
+def run_read_plain(d, e):
+    return st_inline.attention_read_fwd_plain(d["img"], *e["read"], WS)
 
 
-def run_write_plain(d):
-    return st_inline.write_accumulate_plain(
-        d["canvas"].reshape(-1, CS, CS), d["win"], d["s"], d["x"], d["y"],
-        d["coeff"], CS).reshape(-1, CS * CS)
+def run_write(d, e):
+    return st_inline.write_accumulate_fwd(
+        d["canvas"].reshape(-1, CS, CS), d["win"], *e["write"], d["coeff"])
+
+
+def run_write_plain(d, e):
+    return st_inline.write_accumulate_fwd_plain(
+        d["canvas"].reshape(-1, CS, CS), d["win"], *e["write"], d["coeff"])
+
+
+def run_read_bwd(d, e):
+    return st_inline.attention_read_bwd(d["img"], e["g_read"], *e["read"])
+
+
+def run_read_bwd_plain(d, e):
+    return st_inline.attention_read_bwd_plain(d["img"], e["g_read"],
+                                              *e["read"])
+
+
+def run_write_bwd(d, e):
+    return st_inline.write_accumulate_bwd(d["win"], e["g_write"],
+                                          *e["write"], d["coeff"])
+
+
+def run_write_bwd_plain(d, e):
+    return st_inline.write_accumulate_bwd_plain(d["win"], e["g_write"],
+                                                *e["write"], d["coeff"])
+
+
+def bwd_errors(got, want) -> tuple[float, float]:
+    """(max abs diff of the matrix cotangent, max over the scalar cotangents
+    of |diff| / max(1, |plain|))."""
+    mat = float((got[0] - want[0]).abs().max())
+    scal = max(float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+               for g, w in zip(got[1:], want[1:]))
+    return mat, scal
 
 
 def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
@@ -150,6 +226,131 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_train(config, state0, images, digits, train_step,
+                card_line: str) -> dict:
+    """Phase 5. Returns the launches of each kernel over the main path's
+    TRAIN_STEPS steps."""
+    steps = config.max_steps
+    noise = draw_noise(config, BATCH, step_generator(0, 0, DEVICE), DEVICE)
+    graded = {name: make_train_step(config.replace(st_impl=name),
+                                    with_grad_stats=True)
+              for name in ("inline", "xla")}
+    st_inline.reset_launches()
+    _, m_k = graded["inline"](state0, images, digits, noise=noise)
+    torch.cuda.synchronize()
+    after_kernels = dict(st_inline.LAUNCHES)
+    _, m_p = graded["xla"](state0, images, digits, noise=noise)
+    torch.cuda.synchronize()
+    if after_kernels != {k: steps for k in FWD + BWD}:
+        fail(f"step 0 through the kernels launched {after_kernels}, "
+             f"expected {steps} of each")
+    if st_inline.LAUNCHES != after_kernels:
+        fail("the plain path launched a kernel")
+    rel = {k: abs(float(m_k[k]) - float(m_p[k])) / abs(float(m_p[k]))
+           for k in ("loss", "grad_norm")}
+    grad_err = 0.0
+    for (path, g), w in zip(
+            tree_leaves_with_path(m_k["grad_tensors"]["original"]),
+            tree_leaves(m_p["grad_tensors"]["original"])):
+        e = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+        grad_err = max(grad_err, e)
+        if not (e <= GRAD_TOL):
+            fail(f"step 0 gradient of {'/'.join(map(str, path))}: kernels "
+                 f"vs plain path {e} > {GRAD_TOL} x max(1, max |leaf|)")
+    if not all(v <= GRAD_TOL for v in rel.values()):
+        fail(f"step 0 kernels vs plain path, relative diff {rel} > "
+             f"{GRAD_TOL}")
+    say("train", card_line, f"step 0 kernels vs plain path: loss "
+        f"{float(m_k['loss']):.4f} vs {float(m_p['loss']):.4f} (rel "
+        f"{rel['loss']:.3g}), grad_norm rel {rel['grad_norm']:.3g}, "
+        f"gradient leaves max |diff| / max(1, max |leaf|) {grad_err:.3g} "
+        f"(tol {GRAD_TOL})")
+
+    # the main path: TRAIN_STEPS steps through the kernels
+    state = state0
+    losses, recons = [], []
+    st_inline.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = dict(st_inline.LAUNCHES)
+        state, m = train_step(state, images, digits)
+        for k in FWD + BWD:
+            if st_inline.LAUNCHES[k] - before[k] != steps:
+                fail(f"train step {i} launched {k} "
+                     f"{st_inline.LAUNCHES[k] - before[k]} times, expected "
+                     f"{steps}")
+        losses.append(float(m["loss"]))
+        recons.append(float(m["reconstruction_loss"]))
+    seconds = time.perf_counter() - t0
+    launches = dict(st_inline.LAUNCHES)
+    if not np.all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    still = [path for (path, a), b in zip(tree_leaves_with_path(state.params),
+                                          tree_leaves(state0.params))
+             if torch.equal(a, b)]
+    if still:
+        fail(f"parameter leaves that did not move: {still}")
+    first5, last5 = float(np.mean(recons[:5])), float(np.mean(recons[-5:]))
+    if not last5 < first5:
+        fail(f"mean reconstruction loss of the last 5 steps {last5} is not "
+             f"below that of the first 5 {first5}")
+    say("train", card_line, f"{TRAIN_STEPS} steps in {seconds:.2f} s, "
+        f"launches={launches}, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"reconstruction loss mean of first 5 {first5:.3f}, last 5 "
+        f"{last5:.3f}; every parameter leaf moved")
+
+    out = make_eval_step(config)(state.params, images, digits, state.step,
+                                 generator=step_generator(0, state.step,
+                                                          DEVICE))
+    summary = summarize_outputs(out, digits, steps, config.max_digits)
+    # a slice is NaN exactly where its mask is empty: the same summaries of
+    # all-ones outputs (digit counts kept, they define the masks) tell where
+    ones = out._replace(**{f: torch.ones_like(getattr(out, f))
+                           for f in out._fields if f != "rec_num_digits"})
+    defined = summarize_outputs(ones, digits, steps, config.max_digits)
+    bad = [k for k, v in summary.items()
+           if bool(torch.isfinite(v)) != bool(torch.isfinite(defined[k]))]
+    if bad or set(summary) != set(defined):
+        fail(f"eval summaries not finite where their slice is non-empty: "
+             f"{bad}")
+    n_nan = sum(1 for v in defined.values() if not torch.isfinite(v))
+    say("train", card_line, f"eval summary of the trained state: "
+        f"{len(summary)} values, all finite except {n_nan} empty slices "
+        f"(NaN by definition); accuracy {float(summary['accuracy']):.4f}, "
+        f"loss {float(summary['loss']):.3f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, state)
+        loaded = load_checkpoint(path, config, device=DEVICE)
+    same = (loaded.step == state.step and loaded.seed == state.seed
+            and loaded.opt_state.count == state.opt_state.count)
+    for a_tree, b_tree in ((loaded.params, state.params),
+                           (loaded.opt_state.mu, state.opt_state.mu),
+                           (loaded.opt_state.nu, state.opt_state.nu)):
+        same = same and all(a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(tree_leaves(a_tree),
+                                            tree_leaves(b_tree)))
+    if not same:
+        fail("checkpoint round trip changed the state")
+    say("train", card_line, f"checkpoint at step {state.step} saved and "
+        "loaded back bit for bit (params, bf16 moments, counts)")
+    return launches
+
+
+def train_step_ms(train_step, state, images, digits, runs: int = 10):
+    """Median host time of one train step that ends in a synchronize."""
+    for _ in range(2):
+        state, _ = train_step(state, images, digits)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        state, _ = train_step(state, images, digits)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -169,23 +370,44 @@ def main() -> None:
         f"library={lib.path.name} ptxas: {report}")
 
     # 3. kernels against their plain versions
-    err = {"inline_attention_read": 0.0, "inline_write_accumulate": 0.0}
+    err = {k: 0.0 for k in FWD + BWD}
+    scalar_err = {k: 0.0 for k in BWD}
     for b in (BATCH, 1, 7):
         d = kernel_inputs(b, seed=b)
+        e_in = core_inputs(d, seed=100 + b)
         for kname, got_fn, want_fn in (
                 ("inline_attention_read", run_read, run_read_plain),
                 ("inline_write_accumulate", run_write, run_write_plain)):
-            got = got_fn(d)
+            got = got_fn(d, e_in)
             torch.cuda.synchronize()
-            want = want_fn(d)
+            want = want_fn(d, e_in)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
             err[kname] = max(err[kname], e)
             if not (e <= KERNEL_TOL):
                 fail(f"{kname} at B={b}: max abs diff {e} > {KERNEL_TOL}")
+        for kname, got_fn, want_fn in (
+                ("inline_attention_read_bwd", run_read_bwd,
+                 run_read_bwd_plain),
+                ("inline_write_accumulate_bwd", run_write_bwd,
+                 run_write_bwd_plain)):
+            got = got_fn(d, e_in)
+            torch.cuda.synchronize()
+            want = want_fn(d, e_in)
+            torch.cuda.synchronize()
+            mat, scal = bwd_errors(got, want)
+            err[kname] = max(err[kname], mat)
+            scalar_err[kname] = max(scalar_err[kname], scal)
+            if not (mat <= KERNEL_TOL and scal <= SCALAR_TOL):
+                fail(f"{kname} at B={b}: matrix max abs diff {mat} (tol "
+                     f"{KERNEL_TOL}), scalar rel diff {scal} (tol "
+                     f"{SCALAR_TOL})")
     say("kernels", card_line, "kernel vs plain max abs diff "
         + " ".join(f"{k}={v:.3g}" for k, v in err.items())
-        + f" (tol {KERNEL_TOL}, B=64,1,7)")
+        + f" (tol {KERNEL_TOL}); backward scalar cotangents |diff| / "
+        "max(1, |plain|) "
+        + " ".join(f"{k}={v:.3g}" for k, v in scalar_err.items())
+        + f" (tol {SCALAR_TOL}); B=64,1,7")
 
     # 4. the main path: serving the shipped CNN checkpoint
     arch = checkpoint_arch(CKPT)
@@ -204,14 +426,14 @@ def main() -> None:
         before = dict(st_inline.LAUNCHES)
         served.append(wrapper.infer(req))
         for k, v in st_inline.LAUNCHES.items():
-            if v - before[k] != config.max_steps:
+            want = config.max_steps if k in FWD else 0
+            if v - before[k] != want:
                 fail(f"{k} launched {v - before[k]} times in one infer "
-                     f"call of {len(req)} canvases, expected "
-                     f"{config.max_steps}")
-    launches = dict(st_inline.LAUNCHES)
-    for k, v in launches.items():
+                     f"call of {len(req)} canvases, expected {want}")
+    serve_launches = {k: st_inline.LAUNCHES[k] for k in FWD}
+    for k, v in serve_launches.items():
         if v == 0:
-            fail(f"{k} was not launched on the main path")
+            fail(f"{k} was not launched on the serve path")
 
     digits, _, recons, windows, _, losses = served[-1]
     for i, r in enumerate(recons):
@@ -234,10 +456,20 @@ def main() -> None:
     if not (path_err <= PATH_TOL):
         fail(f"reconstructions differ from the plain path by {path_err}")
     say("serve", card_line, f"requests={[len(r) for r in requests]} "
-        f"launches={launches} accuracy={accuracy:.4f} "
+        f"launches={serve_launches} accuracy={accuracy:.4f} "
         f"recon_vs_plain_max_abs={path_err:.3g} (tol {PATH_TOL})")
 
-    # 5. times at B = 64
+    # 5. train: the main path of this slice
+    train_cfg = DEFAULT_TRAINING_CONFIG.replace(cnn=True, st_impl="inline")
+    images = torch.from_numpy(np.concatenate([canvases, canvases[:4]])).to(
+        DEVICE)
+    digits = torch.from_numpy(np.concatenate([truth, truth[:4]])).to(DEVICE)
+    state0 = create_train_state(train_cfg, seed=0, device=DEVICE)
+    train_step = make_train_step(train_cfg)
+    train_launches = check_train(train_cfg, state0, images, digits,
+                                 train_step, card_line)
+
+    # 6. times at B = 64
     d = kernel_inputs(BATCH, seed=1234)
     wy_r = _axis_weight_matrix(d["s"], d["y"], WS, CS)
     wx_r = _axis_weight_matrix(d["s"], d["x"], WS, CS).transpose(1, 2)
@@ -251,22 +483,65 @@ def main() -> None:
     read_flops = 2 * BATCH * (WS * CS * CS + WS * WS * CS)
     write_bytes = f32 * BATCH * (CS * CS + WS * WS + 5 + CS * CS)
     write_flops = 2 * BATCH * (CS * WS * WS + CS * CS * WS + CS * CS)
+    # backward: the products with a weight matrix dense, as counted for the
+    # forward kernels (read: g Wx, Wy^T (g Wx), Wy img; write: g Wx,
+    # Wy^T (g Wx), Wy win), but dWy and dWx only at the at most two taps
+    # per row that the scalar cotangents take, and d_coeff as <Wy win, g Wx>
+    read_bwd_bytes = f32 * BATCH * (2 * CS * CS + WS * WS + 8)
+    read_bwd_flops = 2 * BATCH * (WS * WS * CS + 2 * WS * CS * CS
+                                  + 2 * WS * CS + 2 * WS * WS)
+    write_bwd_bytes = f32 * BATCH * (2 * WS * WS + CS * CS + 10)
+    write_bwd_flops = 2 * BATCH * (CS * CS * WS + 2 * CS * WS * WS
+                                   + CS * WS + 2 * CS * WS + 2 * CS * CS)
+    e_in = core_inputs(d, seed=4321)
+    # library yardstick of a backward: torch.autograd.grad through the
+    # prebuilt-weight chain with respect to the input and both weights
+    # (no scalar contraction), timed as forward + grad less the forward
+    leaves_r = [t.detach().clone().requires_grad_(True)
+                for t in (d["img"], wy_r, wx_r)]
+    leaves_w = [t.detach().clone().requires_grad_(True)
+                for t in (d["win"], wy_w, wx_w)]
+
+    def lib_read_fwd():
+        return torch.matmul(torch.matmul(leaves_r[1], leaves_r[0]),
+                            leaves_r[2])
+
+    def lib_write_fwd():
+        return torch.baddbmm(canvas3, torch.bmm(leaves_w[1], leaves_w[0]),
+                             leaves_w[2])
+
+    def lib_read_bwd():
+        return torch.autograd.grad(lib_read_fwd(), leaves_r, e_in["g_read"])
+
+    def lib_write_bwd():
+        return torch.autograd.grad(lib_write_fwd(), leaves_w,
+                                   e_in["g_write"])
+
     rows = []
-    for kname, line, fn, plain_fn, lib_fn, nbytes, flops in (
-            ("inline_attention_read", 222, run_read, run_read_plain,
-             lambda: torch.matmul(torch.matmul(wy_r, d["img"]), wx_r),
+    for kname, line, fn, plain_fn, lib_fn, lib_less, nbytes, flops in (
+            ("inline_attention_read", 222, lambda: run_read(d, e_in),
+             lambda: run_read_plain(d, e_in), lib_read_fwd, None,
              read_bytes, read_flops),
-            ("inline_write_accumulate", 70, run_write, run_write_plain,
-             lambda: torch.baddbmm(canvas3, torch.bmm(wy_w, d["win"]), wx_w),
-             write_bytes, write_flops)):
-        ms = device_ms(lambda: fn(d))
-        plain_ms = device_ms(lambda: plain_fn(d))
+            ("inline_write_accumulate", 70, lambda: run_write(d, e_in),
+             lambda: run_write_plain(d, e_in), lib_write_fwd, None,
+             write_bytes, write_flops),
+            ("inline_attention_read_bwd", 234, lambda: run_read_bwd(d, e_in),
+             lambda: run_read_bwd_plain(d, e_in), lib_read_bwd,
+             lib_read_fwd, read_bwd_bytes, read_bwd_flops),
+            ("inline_write_accumulate_bwd", 83,
+             lambda: run_write_bwd(d, e_in),
+             lambda: run_write_bwd_plain(d, e_in), lib_write_bwd,
+             lib_write_fwd, write_bwd_bytes, write_bwd_flops)):
+        ms = device_ms(fn)
+        plain_ms = device_ms(plain_fn)
         library_ms = device_ms(lib_fn)
+        if lib_less is not None:
+            library_ms -= device_ms(lib_less)
         b_ms, b_by = bound_ms(nbytes, flops)
         rows.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": f"air_tpu/kernels/st_inline.py:{line}",
-            "launches": launches[kname], "max_abs_err": err[kname],
+            "launches": train_launches[kname], "max_abs_err": err[kname],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms})
         say("times", card_line, f"{kname} B={BATCH}: ms={ms:.5f} "
@@ -285,6 +560,12 @@ def main() -> None:
         lat[n] = float(np.median(runs))
     say("times", card_line, f"infer latency median of 10: "
         f"1 canvas {lat[1]:.3f} ms, 64 canvases {lat[64]:.3f} ms")
+    for impl in ("inline", "xla"):
+        ms = train_step_ms(make_train_step(train_cfg.replace(st_impl=impl)),
+                           state0, images, digits)
+        say("times", card_line, f"train step st_impl={impl} batch {BATCH} "
+            f"median of 10: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} "
+            "images/s")
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package: every module of
-air_tpu_torch, and chip_smoke.py's module-level code, import and run in a
+air_tpu_torch (the slice's modules among them), and the module-level code of
+chip_smoke.py and of the port's profiling scripts, import and run in a
 process where importing jax or air_tpu fails. And chip_smoke.py gives no
 result without a card or without the rest of the repository."""
 
@@ -14,19 +15,37 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# modules the port must have; the walk imports every module it finds
+PORT_MODULES = (
+    "air_tpu_torch.interop", "air_tpu_torch.tree",
+    "air_tpu_torch.kernels.build", "air_tpu_torch.kernels.st_inline",
+    "air_tpu_torch.models.air", "air_tpu_torch.models.config",
+    "air_tpu_torch.nn.cnn", "air_tpu_torch.nn.layers", "air_tpu_torch.nn.lstm",
+    "air_tpu_torch.nn.vae", "air_tpu_torch.ops.concrete",
+    "air_tpu_torch.ops.gaussian", "air_tpu_torch.ops.schedules",
+    "air_tpu_torch.ops.transformer", "air_tpu_torch.serve.model_wrapper",
+    "air_tpu_torch.train.checkpoint", "air_tpu_torch.train.metrics",
+    "air_tpu_torch.train.state", "air_tpu_torch.train.steps")
+
 NO_JAX = """
 import importlib, pkgutil, runpy, sys
 for name in ("jax", "jaxlib", "optax", "air_tpu"):
     sys.modules[name] = None          # any import of them now fails
 import air_tpu_torch
+walked = set()
 for mod in pkgutil.walk_packages(air_tpu_torch.__path__, "air_tpu_torch."):
     importlib.import_module(mod.name)
+    walked.add(mod.name)
+missing = set(PORT_MODULES) - walked
+assert not missing, missing
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+for script in ("profile_torch_serve.py", "profile_torch_train.py"):
+    runpy.run_path("scripts/" + script, run_name="profile")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "air_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded
 print("OK")
-"""
+""".replace("PORT_MODULES", repr(PORT_MODULES))
 
 
 def _run(args, cwd):

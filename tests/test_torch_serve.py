@@ -73,7 +73,9 @@ def test_infer_counts_digits(wrapper, fixture):
     assert acc >= 0.9, f"port's shipped CNN checkpoint accuracy {acc}"
     # on CPU tensors the wrappers take the plain versions: no launch
     assert st_inline.LAUNCHES == {"inline_attention_read": 0,
-                                  "inline_write_accumulate": 0}
+                                  "inline_write_accumulate": 0,
+                                  "inline_attention_read_bwd": 0,
+                                  "inline_write_accumulate_bwd": 0}
 
 
 @pytest.mark.parametrize("n", [1, 5, 60])
