@@ -57,36 +57,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-
-
-def _check_scalars(device, b: int, **scalars) -> None:
-    for name, t in scalars.items():
-        _check(name, t, (b,), device)
-
-
-def _launch(fn, device, *tensors_and_sizes) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"{fn.__name__}: no kernel for device {device}")
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in tensors_and_sizes]
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
-
-
-def _contiguous(*ts):
-    return tuple(t.contiguous() for t in ts)
-
-
 # -------------------- plain versions ----------------------------------------
 
 def attention_read_fwd_plain(images, ay, cy, ax, cx, ws: int):
@@ -160,10 +130,10 @@ def attention_read_fwd(images, ay, cy, ax, cx, ws: int) -> torch.Tensor:
     b, cs = images.shape[0], images.shape[-1]
     if images.device.type == "cpu":
         return attention_read_fwd_plain(images, ay, cy, ax, cx, ws)
-    images, ay, cy, ax, cx = _contiguous(images, ay, cy, ax, cx)
+    images, ay, cy, ax, cx = build.contiguous(images, ay, cy, ax, cx)
     out = torch.empty((b, ws, ws), dtype=torch.float32, device=images.device)
-    _launch(_lib().st_inline_read, images.device, images, ay, cy, ax, cx, out,
-            b, cs, ws)
+    build.launch(_lib().st_inline_read, images.device, images, ay, cy, ax,
+                 cx, out, b, cs, ws)
     LAUNCHES["inline_attention_read"] += 1
     return out
 
@@ -172,14 +142,14 @@ def attention_read_bwd(images, g, ay, cy, ax, cx):
     """(d_images, d_ay, d_cy, d_ax, d_cx) of the read: the backward kernel on
     CUDA tensors, ``attention_read_bwd_plain`` on CPU tensors."""
     b, cs, ws = images.shape[0], images.shape[-1], g.shape[-1]
-    _check("g", g, (b, ws, ws), images.device)
+    build.check("g", g, (b, ws, ws), images.device)
     if images.device.type == "cpu":
         return attention_read_bwd_plain(images, g, ay, cy, ax, cx)
-    images, g, ay, cy, ax, cx = _contiguous(images, g, ay, cy, ax, cx)
+    images, g, ay, cy, ax, cx = build.contiguous(images, g, ay, cy, ax, cx)
     d_img = torch.empty_like(images)
     d_s = torch.empty((4, b), dtype=torch.float32, device=images.device)
-    _launch(_lib().st_inline_read_bwd, images.device, images, g, ay, cy, ax,
-            cx, d_img, *d_s, b, cs, ws)
+    build.launch(_lib().st_inline_read_bwd, images.device, images, g, ay,
+                 cy, ax, cx, d_img, *d_s, b, cs, ws)
     LAUNCHES["inline_attention_read_bwd"] += 1
     return (d_img, *d_s)
 
@@ -192,11 +162,11 @@ def write_accumulate_fwd(canvas, windows, ay, cy, ax, cx, coeff):
     if canvas.device.type == "cpu":
         return write_accumulate_fwd_plain(canvas, windows, ay, cy, ax, cx,
                                           coeff)
-    canvas, windows, ay, cy, ax, cx, coeff = _contiguous(
+    canvas, windows, ay, cy, ax, cx, coeff = build.contiguous(
         canvas, windows, ay, cy, ax, cx, coeff)
     out = torch.empty_like(canvas)
-    _launch(_lib().st_inline_write, canvas.device, canvas, windows, ay, cy,
-            ax, cx, coeff, out, b, cs, ws)
+    build.launch(_lib().st_inline_write, canvas.device, canvas, windows, ay,
+                 cy, ax, cx, coeff, out, b, cs, ws)
     LAUNCHES["inline_write_accumulate"] += 1
     return out
 
@@ -206,15 +176,15 @@ def write_accumulate_bwd(windows, g, ay, cy, ax, cx, coeff):
     backward kernel on CUDA tensors, ``write_accumulate_bwd_plain`` on CPU
     tensors."""
     b, ws, cs = windows.shape[0], windows.shape[-1], g.shape[-1]
-    _check("g", g, (b, cs, cs), windows.device)
+    build.check("g", g, (b, cs, cs), windows.device)
     if windows.device.type == "cpu":
         return write_accumulate_bwd_plain(windows, g, ay, cy, ax, cx, coeff)
-    windows, g, ay, cy, ax, cx, coeff = _contiguous(
+    windows, g, ay, cy, ax, cx, coeff = build.contiguous(
         windows, g, ay, cy, ax, cx, coeff)
     d_win = torch.empty_like(windows)
     d_s = torch.empty((5, b), dtype=torch.float32, device=windows.device)
-    _launch(_lib().st_inline_write_bwd, windows.device, windows, g, ay, cy,
-            ax, cx, coeff, d_win, *d_s, b, cs, ws)
+    build.launch(_lib().st_inline_write_bwd, windows.device, windows, g,
+                 ay, cy, ax, cx, coeff, d_win, *d_s, b, cs, ws)
     LAUNCHES["inline_write_accumulate_bwd"] += 1
     return (d_win, *d_s)
 
@@ -262,8 +232,8 @@ def inline_attention_read(images: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"read: needs B >= 1 and sizes >= 2, got B={b}, "
                          f"cs={cs}, ws={ws}")
     dev = images.device
-    _check("images", images, (b, cs, cs), dev)
-    _check_scalars(dev, b, s=s, x=x, y=y)
+    build.check("images", images, (b, cs, cs), dev)
+    build.check_scalars(dev, b, s=s, x=x, y=y)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"read: no kernel for device {dev}")
     # theta [[s, 0, x], [0, s, y]]: rows (y axis) use (s, y), columns (s, x)
@@ -278,20 +248,8 @@ def inline_write_accumulate(canvas_flat: torch.Tensor, windows: torch.Tensor,
     canvas and [B, ws*ws] (or [B, ws, ws]) windows -> a new [B, cs*cs]
     canvas, differentiable in every input. The input canvas is left
     unchanged."""
-    b, cs = canvas_flat.shape[0], canvas_size
-    ws = int(round((windows.numel() // max(b, 1)) ** 0.5))
-    if b < 1 or cs < 2 or ws < 2:
-        raise ValueError(f"write: needs B >= 1 and sizes >= 2, got B={b}, "
-                         f"cs={cs}, ws={ws}")
-    dev = canvas_flat.device
-    _check("canvas", canvas_flat, (b, cs * cs), dev)
-    if tuple(windows.shape) not in ((b, ws * ws), (b, ws, ws)):
-        raise ValueError(f"windows: expected [{b}, {ws * ws}] or "
-                         f"[{b}, {ws}, {ws}], got {tuple(windows.shape)}")
-    _check("windows", windows.reshape(b, ws, ws), (b, ws, ws), dev)
-    _check_scalars(dev, b, s=s, x=x, y=y, coeff=coeff)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"write: no kernel for device {dev}")
+    b, cs, ws = build.check_write(canvas_flat, windows, canvas_size, s=s,
+                                  x=x, y=y, coeff=coeff)
     # window -> canvas theta [[1/s, 0, -x/s], [0, 1/s, -y/s]]
     inv_s = 1.0 / s
     out = _WriteCore.apply(canvas_flat.reshape(b, cs, cs),

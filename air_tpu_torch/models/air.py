@@ -10,9 +10,13 @@ Counterpart of ``air_forward`` in ``air_tpu/models/air.py``, step for step:
     JAX package writes it.
 
 ``st_impl="inline"`` takes the attention read and the write-accumulate
-through ``air_tpu_torch.kernels.st_inline`` (hand-written CUDA kernels on
-the card, their plain versions on the CPU); ``st_impl="xla"`` takes them
-through the plain products of ``air_tpu_torch.ops.transformer``.
+through ``air_tpu_torch.kernels.st_inline`` (hand-written CUDA kernels that
+build the bilinear weights inside); ``st_impl="pallas"`` through
+``air_tpu_torch.kernels.st_pallas`` (the read) and ``st_fused`` (the
+write-accumulate), hand-written CUDA kernels with the dense weight matrices
+streamed in. Both take their kernels' plain versions on the CPU.
+``st_impl="xla"`` takes the read and the write through the plain products
+of ``air_tpu_torch.ops.transformer``.
 
 Every random draw is an input. ``noise`` holds, per step, the scale eps
 ``[B, 1]``, the shift eps ``[B, 2]``, the VAE latent eps ``[B, latent]``, the
@@ -26,8 +30,10 @@ from typing import Any, NamedTuple
 
 import torch
 
+from air_tpu_torch.kernels.st_fused import fused_write_accumulate
 from air_tpu_torch.kernels.st_inline import (inline_attention_read,
                                              inline_write_accumulate)
+from air_tpu_torch.kernels.st_pallas import pallas_attention_read
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.nn.cnn import cnn_apply, cnn_init
 from air_tpu_torch.nn.layers import two_layer_head_apply, two_layer_head_init
@@ -70,10 +76,6 @@ def check_supported(config: AIRConfig) -> None:
         raise NotImplementedError(
             "decoder_layout='stepparallel' comes with the throughput-layouts "
             "slice of the port; use decoder_layout='scan'")
-    if config.st_impl not in ("inline", "xla"):
-        raise NotImplementedError(
-            f"st_impl={config.st_impl!r} comes with a later slice of the "
-            "port; use 'inline' or 'xla'")
     if config.st_pad_mode != "zeros":
         raise NotImplementedError("the port implements st_pad_mode='zeros'")
     if config.compute_dtype != "float32":
@@ -167,8 +169,9 @@ def _attend(params: dict, config: AIRConfig, hp: dict,
     """Heads, sampling, the attention read, the VAE and the per-step KLs."""
     ws = config.windows_size
     batch = images_2d.shape[0]
-    read = (inline_attention_read if config.st_impl == "inline"
-            else attention_read)
+    read = {"inline": inline_attention_read,
+            "pallas": pallas_attention_read}.get(config.st_impl,
+                                                 attention_read)
 
     scale_mean = two_layer_head_apply(params["scale_mean"], outputs)
     scale_log_variance = two_layer_head_apply(params["scale_log_variance"],
@@ -219,12 +222,18 @@ def _attend(params: dict, config: AIRConfig, hp: dict,
                  shift_kl, vae_kl, theta_back, vae_recon, vae_latent)
 
 
-def _full_fp32() -> None:
-    """Keep float32 products in full float32 on the card. cuDNN runs float32
-    convolutions in TF32 by default, which keeps about three digits; the
-    port is held to the JAX package at 1e-4, so both switches are off."""
+def _numeric_flags() -> None:
+    """Keep float32 products in full float32 on the card, and make cuDNN's
+    convolutions repeat their bits. cuDNN runs float32 convolutions in TF32
+    by default, which keeps about three digits; the port is held to the JAX
+    package at 1e-4, so both TF32 switches are off. And by default cuDNN
+    picks weight-gradient algorithms that sum with atomics, so two runs of a
+    train step from one state part in the CNN's gradients at step 0 and
+    then drift apart; with ``deterministic`` they give the same bits, as
+    the JAX package does (scripts/determinism_torch_train.py)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def air_forward(params: dict, config: AIRConfig, images: torch.Tensor,
@@ -252,7 +261,7 @@ def air_forward(params: dict, config: AIRConfig, images: torch.Tensor,
 
     device = images.device
     if device.type == "cuda":
-        _full_fp32()
+        _numeric_flags()
     batch = images.shape[0]
     cs, ws = config.canvas_size, config.windows_size
     images = images.to(torch.float32)
@@ -291,11 +300,12 @@ def air_forward(params: dict, config: AIRConfig, images: torch.Tensor,
         alive = stopping_sum < threshold
         running_digits = running_digits + alive.to(torch.int32)
 
-        if config.st_impl == "inline":
+        if config.st_impl in ("inline", "pallas"):
             # coeff = alive * z_pres is exactly where(alive, z_pres * wr, 0)
-            running_recon = inline_write_accumulate(
-                running_recon, a.vae_recon, s, x, y,
-                alive.to(torch.float32) * a.z_pres, cs)
+            fused = (inline_write_accumulate if config.st_impl == "inline"
+                     else fused_write_accumulate)
+            running_recon = fused(running_recon, a.vae_recon, s, x, y,
+                                  alive.to(torch.float32) * a.z_pres, cs)
         else:
             window_recon = attention_write(
                 a.vae_recon.reshape(batch, ws, ws), s, x, y, cs)

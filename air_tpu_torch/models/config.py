@@ -7,7 +7,7 @@ copy so that it imports nothing of the JAX package.
 
 Knobs that select a JAX/TPU execution strategy (``scan_unroll``,
 ``adam_storage_dtype``) are kept for surface parity. Those whose paths are
-not ported yet (``st_impl="pallas"``, ``decoder_layout="stepparallel"``,
+not ported yet (``decoder_layout="stepparallel"``,
 ``compute_dtype="bfloat16"``, ``rnn_input_hoist``) raise
 ``NotImplementedError`` in ``air_tpu_torch.models.air``.
 """

@@ -4,9 +4,10 @@ Counterpart of ``air_tpu/train/steps.py``. The train step is one training
 iteration of the reference: the annealed hyperparameters resolved at the
 state's own global step, the optional background composite, the forward
 pass, the backward pass, the optimizer (``train/state.py``), and the
-metrics. PyTorch runs it eagerly; with ``st_impl="inline"`` the attention
-read and the write-accumulate run their hand-written kernels forward and
-backward on the card.
+metrics. PyTorch runs it eagerly; with ``st_impl="inline"`` or
+``"pallas"`` the attention read and the write-accumulate run their
+hand-written kernels on the card (``"pallas"``: the read's backward as
+plain products, as the JAX package takes XLA's there).
 
 Every random draw of a train step comes from a ``torch.Generator`` on the
 parameters' device seeded from ``(state.seed, state.step)``, the counterpart
@@ -18,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from air_tpu_torch.models.air import (AIROutputs, _full_fp32, air_forward,
-                                      draw_noise)
+from air_tpu_torch.models.air import (AIROutputs, _numeric_flags,
+                                      air_forward, draw_noise)
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.ops.schedules import resolve_annealed
 from air_tpu_torch.train.metrics import summarize_outputs
@@ -109,7 +110,7 @@ def make_train_step(config: AIRConfig, bg_image=None,
         out = air_forward(params, config, images, targets, train=True,
                           hparams=hp, noise=noise)
         if device.type == "cuda":
-            _full_fp32()      # the backward's products too: no TF32
+            _numeric_flags()  # the backward's products too
         grads = tree_unflatten(params, torch.autograd.grad(
             out.loss, tree_leaves(params)))
         updates, opt_state = optimizer.update(grads, state.opt_state)

@@ -3,42 +3,51 @@
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
-Phases, one flushed line each, every line with the card's name and power
-limit as nvidia-smi reports them:
+Two paths of the attention read and write-accumulate are driven, each
+through its hand-written CUDA kernels: st_impl="inline" (kernels that build
+the bilinear weights inside: st_inline.cu) and st_impl="pallas" (the dense
+weight matrices streamed in: st_pallas.cu for the read, st_fused.cu for the
+write-accumulate and its backward). Phases, one flushed line each, every
+line with the card's name and power limit as nvidia-smi reports them:
 
   1. device   the card's name and count; fails without CUDA.
-  2. build    nvcc builds the kernels into air_tpu_torch/_build/; prints the
-              seconds and the -Xptxas -v register / shared-memory report.
+  2. build    nvcc builds the kernels into air_tpu_torch/_build/, one nvcc
+              per source, all started together; prints the seconds and the
+              -Xptxas -v register / shared-memory report.
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              B = 64, 1 and 7: the forward kernels and the backward kernels'
-              matrix cotangents to max abs diff 1e-5, the backward kernels'
-              scalar cotangents to 1e-4 * max(1, |plain|).
-  4. serve    ModelWrapper on the shipped CNN checkpoint with st_impl="inline"
+              B = 64, 1 and 7 (the streamed-weight resample in both its
+              directions): values and matrix cotangents to max abs diff
+              1e-5, scalar cotangents to 1e-4 * max(1, |plain|).
+  4. serve    ModelWrapper on the shipped CNN checkpoint, for each path,
               answers 1, 8 and 60 canvases of the committed fixture; every
-              infer call launches each forward kernel max_steps times and no
-              backward kernel; digit-count accuracy >= 0.9; the same requests
-              through the plain versions agree (reconstructions to 1e-4,
-              digit counts exactly).
-  5. train    the training step of DEFAULT_TRAINING_CONFIG with cnn=True and
-              st_impl="inline" at full width, batch 64 (the 60 fixture
-              canvases and their first 4 again), from create_train_state
-              (seed 0). Step 0 through the kernels against step 0 through the
-              plain path (st_impl="xla") at the same params and draws: loss
-              and grad_norm to 1e-4 relative, every gradient leaf to 1e-4 *
+              infer call launches each of the path's forward kernels
+              max_steps times and no other kernel; digit-count accuracy >=
+              0.9; the same requests through the plain versions agree
+              (reconstructions to 1e-4, digit counts exactly).
+  5. train    the training step of DEFAULT_TRAINING_CONFIG with cnn=True at
+              full width, batch 64 (the 60 fixture canvases and their first
+              4 again), from create_train_state (seed 0), for each path.
+              Step 0 through the kernels against step 0 through the plain
+              path (st_impl="xla") at the same params and draws: loss and
+              grad_norm to 1e-4 relative, every gradient leaf to 1e-4 *
               max(1, max |leaf|). Then TRAIN_STEPS steps through the kernels
-              (the main path): each step launches each of the four kernels
-              max_steps times, every loss is finite, every parameter leaf
-              moves, and the mean reconstruction loss of the last 5 steps is
-              below that of the first 5. The eval summaries of the trained
-              state are finite wherever their slice is non-empty, and
-              save_checkpoint / load_checkpoint (in a temporary directory)
-              round-trip params, moments and step bit for bit.
+              (the path's main run): each step launches each of the path's
+              kernels max_steps times and no other kernel, every loss is
+              finite, every parameter leaf moves, and the mean
+              reconstruction loss of the last 5 steps is below that of the
+              first 5. The eval summaries of the trained state are finite
+              wherever their slice is non-empty, and save_checkpoint /
+              load_checkpoint (in a temporary directory) round-trip params,
+              moments and step bit for bit. Last, two runs of the first
+              DETERMINISM_STEPS steps from the same state give the same
+              losses bit for bit.
   6. times    device time per launch of each kernel, its plain version and a
               PyTorch yardstick at B = 64 (CUDA graphs of back-to-back
               launches, timed with CUDA events), the bound from the published
               H100 SXM peaks; the infer latency for 1 and 64 canvases; the
               train step (median of 10, host clock, each ending in a
-              synchronize) through the kernels and through the plain path.
+              synchronize) through each path's kernels and through the plain
+              path.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -54,11 +63,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from air_tpu_torch.kernels import build, st_inline
+from air_tpu_torch.kernels import build, st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
@@ -74,7 +84,8 @@ from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
 FIXTURE = os.path.join(REPO, "air_tpu_torch", "assets", "serve_canvases.npz")
-SOURCE = "air_tpu_torch/kernels/csrc/st_inline.cu"
+MODULES = (st_inline, st_pallas, st_fused)
+LIBRARIES = ("st_inline", "st_pallas", "st_fused")
 DEVICE = "cuda"
 
 TIME_BUDGET_S = 180.0
@@ -90,8 +101,14 @@ CS, WS = 50, 28
 # steps by 16-24% below that of the first 5 in 60 steps (seeds 0 and 1),
 # less reliably in 30-40 (PERF.md)
 TRAIN_STEPS = 60
-FWD = ("inline_attention_read", "inline_write_accumulate")
-BWD = ("inline_attention_read_bwd", "inline_write_accumulate_bwd")
+DETERMINISM_STEPS = 10
+# the kernels each path launches: (forward, backward)
+PATHS = {
+    "inline": (("inline_attention_read", "inline_write_accumulate"),
+               ("inline_attention_read_bwd", "inline_write_accumulate_bwd")),
+    "pallas": (("pallas_attention_read", "fused_write_accumulate"),
+               ("fused_write_accumulate_bwd",)),
+}
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -117,6 +134,26 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def reset_launches() -> None:
+    for module in MODULES:
+        module.reset_launches()
+
+
+def launches() -> dict:
+    """Every kernel's launch count, over the three kernel modules."""
+    return {k: v for module in MODULES for k, v in module.LAUNCHES.items()}
+
+
+def expect_launches(before: dict, want: dict, what: str) -> None:
+    """Fail unless the counts moved by ``want`` since ``before`` and every
+    other kernel stayed where it was."""
+    now = launches()
+    moved = {k: now[k] - before[k] for k in now}
+    expected = {k: want.get(k, 0) for k in now}
+    if moved != expected:
+        fail(f"{what} launched {moved}, expected {expected}")
+
+
 def scalars(b: int, gen: torch.Generator):
     """s in [0.1, 1], x and y in [-1, 1]."""
     u = torch.rand((3, b), generator=gen, device=DEVICE)
@@ -135,62 +172,86 @@ def kernel_inputs(b: int, seed: int) -> dict:
 
 
 def core_inputs(d: dict, seed: int) -> dict:
-    """The per-axis scalars (a, c) as the wrappers form them from (s, x, y),
-    and random output cotangents of the read [B, ws, ws] and of the write
-    [B, cs, cs]."""
+    """The per-axis scalars (a, c) as the inline wrappers form them from
+    (s, x, y), the dense weight matrices [B, out, in] the streamed-weight
+    wrappers build from them, and random output cotangents of the read
+    [B, ws, ws] and of the write [B, cs, cs]."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     b = d["s"].shape[0]
     inv_s = 1.0 / d["s"]
+    read = (d["s"], d["y"], d["s"], d["x"])
+    write = (inv_s, -d["y"] * inv_s, inv_s, -d["x"] * inv_s)
     return dict(
-        read=(d["s"], d["y"], d["s"], d["x"]),
-        write=(inv_s, -d["y"] * inv_s, inv_s, -d["x"] * inv_s),
+        read=read, write=write,
+        w_read=(_axis_weight_matrix(read[0], read[1], WS, CS),
+                _axis_weight_matrix(read[2], read[3], WS, CS)),
+        w_write=(_axis_weight_matrix(write[0], write[1], CS, WS),
+                 _axis_weight_matrix(write[2], write[3], CS, WS)),
         g_read=torch.randn((b, WS, WS), generator=gen, device=DEVICE),
         g_write=torch.randn((b, CS, CS), generator=gen, device=DEVICE))
 
 
-def run_read(d, e):
-    return st_inline.attention_read_fwd(d["img"], *e["read"], WS)
+def canvas3(d):
+    return d["canvas"].reshape(-1, CS, CS)
 
 
-def run_read_plain(d, e):
-    return st_inline.attention_read_fwd_plain(d["img"], *e["read"], WS)
+# each kernel: (its wrapper, its plain version, the number of matrix
+# outputs before the scalar ones), all on the inputs of kernel_inputs and
+# core_inputs
+KERNELS = {
+    "inline_attention_read": (
+        lambda d, e: st_inline.attention_read_fwd(d["img"], *e["read"], WS),
+        lambda d, e: st_inline.attention_read_fwd_plain(d["img"], *e["read"],
+                                                        WS), 1),
+    "inline_write_accumulate": (
+        lambda d, e: st_inline.write_accumulate_fwd(
+            canvas3(d), d["win"], *e["write"], d["coeff"]),
+        lambda d, e: st_inline.write_accumulate_fwd_plain(
+            canvas3(d), d["win"], *e["write"], d["coeff"]), 1),
+    "inline_attention_read_bwd": (
+        lambda d, e: st_inline.attention_read_bwd(d["img"], e["g_read"],
+                                                  *e["read"]),
+        lambda d, e: st_inline.attention_read_bwd_plain(
+            d["img"], e["g_read"], *e["read"]), 1),
+    "inline_write_accumulate_bwd": (
+        lambda d, e: st_inline.write_accumulate_bwd(
+            d["win"], e["g_write"], *e["write"], d["coeff"]),
+        lambda d, e: st_inline.write_accumulate_bwd_plain(
+            d["win"], e["g_write"], *e["write"], d["coeff"]), 1),
+    "pallas_attention_read": (
+        lambda d, e: st_pallas.fused_dots(e["w_read"][0], d["img"],
+                                          e["w_read"][1],
+                                          "pallas_attention_read"),
+        lambda d, e: st_pallas.fused_dots_plain(e["w_read"][0], d["img"],
+                                                e["w_read"][1]), 1),
+    "pallas_attention_write": (
+        lambda d, e: st_pallas.fused_dots(e["w_write"][0], d["win"],
+                                          e["w_write"][1],
+                                          "pallas_attention_write"),
+        lambda d, e: st_pallas.fused_dots_plain(e["w_write"][0], d["win"],
+                                                e["w_write"][1]), 1),
+    "fused_write_accumulate": (
+        lambda d, e: st_fused.wmac_fwd(canvas3(d), d["win"], *e["w_write"],
+                                       d["coeff"]),
+        lambda d, e: st_fused.wmac_fwd_plain(canvas3(d), d["win"],
+                                             *e["w_write"], d["coeff"]), 1),
+    "fused_write_accumulate_bwd": (
+        lambda d, e: st_fused.wmac_bwd(d["win"], *e["w_write"], d["coeff"],
+                                       e["g_write"]),
+        lambda d, e: st_fused.wmac_bwd_plain(d["win"], *e["w_write"],
+                                             d["coeff"], e["g_write"]), 3),
+}
 
 
-def run_write(d, e):
-    return st_inline.write_accumulate_fwd(
-        d["canvas"].reshape(-1, CS, CS), d["win"], *e["write"], d["coeff"])
-
-
-def run_write_plain(d, e):
-    return st_inline.write_accumulate_fwd_plain(
-        d["canvas"].reshape(-1, CS, CS), d["win"], *e["write"], d["coeff"])
-
-
-def run_read_bwd(d, e):
-    return st_inline.attention_read_bwd(d["img"], e["g_read"], *e["read"])
-
-
-def run_read_bwd_plain(d, e):
-    return st_inline.attention_read_bwd_plain(d["img"], e["g_read"],
-                                              *e["read"])
-
-
-def run_write_bwd(d, e):
-    return st_inline.write_accumulate_bwd(d["win"], e["g_write"],
-                                          *e["write"], d["coeff"])
-
-
-def run_write_bwd_plain(d, e):
-    return st_inline.write_accumulate_bwd_plain(d["win"], e["g_write"],
-                                                *e["write"], d["coeff"])
-
-
-def bwd_errors(got, want) -> tuple[float, float]:
-    """(max abs diff of the matrix cotangent, max over the scalar cotangents
-    of |diff| / max(1, |plain|))."""
-    mat = float((got[0] - want[0]).abs().max())
-    scal = max(float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
-               for g, w in zip(got[1:], want[1:]))
+def errors(got, want, n_mat: int) -> tuple[float, float]:
+    """(max abs diff over the matrix outputs, max over the scalar outputs of
+    |diff| / max(1, |plain|))."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    mat = max(float((g - w).abs().max())
+              for g, w in zip(got[:n_mat], want[:n_mat]))
+    scal = max((float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+                for g, w in zip(got[n_mat:], want[n_mat:])), default=0.0)
     return mat, scal
 
 
@@ -226,26 +287,72 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_train(config, state0, images, digits, train_step,
-                card_line: str) -> dict:
-    """Phase 5. Returns the launches of each kernel over the main path's
-    TRAIN_STEPS steps."""
-    steps = config.max_steps
+def check_serve(impl: str, params, canvases, truth, card_line: str):
+    """Phase 4 for one path. Returns its wrapper."""
+    arch = checkpoint_arch(CKPT)
+    config = DEFAULT_TRAINING_CONFIG.replace(**arch, st_impl=impl)
+    fwd = PATHS[impl][0]
+    requests = [canvases[:1], canvases[:8], canvases]
+    wrapper = ModelWrapper(config, params, seed=0, device=DEVICE)
+    # the same seed and calls: the same draws
+    plain = ModelWrapper(config.replace(st_impl="xla"), params, seed=0,
+                         decoder_layout="scan", device=DEVICE)
+
+    reset_launches()
+    served = []
+    for req in requests:
+        before = launches()
+        served.append(wrapper.infer(req))
+        expect_launches(before, {k: config.max_steps for k in fwd},
+                        f"one infer call of {len(req)} canvases ({impl})")
+    serve_launches = {k: launches()[k] for k in fwd}
+
+    digits, _, recons, windows, _, losses = served[-1]
+    for i, r in enumerate(recons):
+        if r.shape != (CS, CS) or not np.all(np.isfinite(r)):
+            fail(f"{impl} reconstruction {i}: shape {r.shape} or non-finite "
+                 "values")
+    if not np.all(np.isfinite(losses)):
+        fail(f"{impl}: non-finite reconstruction loss")
+    accuracy = float(np.mean(np.asarray(digits) == truth))
+    if accuracy < MIN_ACCURACY:
+        fail(f"{impl}: digit-count accuracy {accuracy} < {MIN_ACCURACY}")
+
+    path_err = 0.0
+    for req, got in zip(requests, served):
+        want = plain.infer(req)
+        if list(got[0]) != list(want[0]):
+            fail(f"{impl}: digit counts differ from the plain path on "
+                 f"{len(req)} canvases")
+        path_err = max(path_err, max(float(np.max(np.abs(a - b)))
+                                     for a, b in zip(got[2], want[2])))
+    if not (path_err <= PATH_TOL):
+        fail(f"{impl}: reconstructions differ from the plain path by "
+             f"{path_err}")
+    say("serve", card_line, f"st_impl={impl} "
+        f"requests={[len(r) for r in requests]} launches={serve_launches} "
+        f"accuracy={accuracy:.4f} recon_vs_plain_max_abs={path_err:.3g} "
+        f"(tol {PATH_TOL})")
+    return wrapper
+
+
+def check_train(config, state0, images, digits, card_line: str) -> dict:
+    """Phase 5 for the path of ``config.st_impl``. Returns the launches of
+    each of the path's kernels over its TRAIN_STEPS steps."""
+    impl, steps = config.st_impl, config.max_steps
+    per_step = {k: steps for k in PATHS[impl][0] + PATHS[impl][1]}
     noise = draw_noise(config, BATCH, step_generator(0, 0, DEVICE), DEVICE)
     graded = {name: make_train_step(config.replace(st_impl=name),
                                     with_grad_stats=True)
-              for name in ("inline", "xla")}
-    st_inline.reset_launches()
-    _, m_k = graded["inline"](state0, images, digits, noise=noise)
+              for name in (impl, "xla")}
+    before = launches()
+    _, m_k = graded[impl](state0, images, digits, noise=noise)
     torch.cuda.synchronize()
-    after_kernels = dict(st_inline.LAUNCHES)
+    expect_launches(before, per_step, f"step 0 through the {impl} kernels")
+    before = launches()
     _, m_p = graded["xla"](state0, images, digits, noise=noise)
     torch.cuda.synchronize()
-    if after_kernels != {k: steps for k in FWD + BWD}:
-        fail(f"step 0 through the kernels launched {after_kernels}, "
-             f"expected {steps} of each")
-    if st_inline.LAUNCHES != after_kernels:
-        fail("the plain path launched a kernel")
+    expect_launches(before, {}, "the plain path")
     rel = {k: abs(float(m_k[k]) - float(m_p[k])) / abs(float(m_p[k]))
            for k in ("loss", "grad_norm")}
     grad_err = 0.0
@@ -255,49 +362,48 @@ def check_train(config, state0, images, digits, train_step,
         e = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
         grad_err = max(grad_err, e)
         if not (e <= GRAD_TOL):
-            fail(f"step 0 gradient of {'/'.join(map(str, path))}: kernels "
-                 f"vs plain path {e} > {GRAD_TOL} x max(1, max |leaf|)")
+            fail(f"{impl} step 0 gradient of {'/'.join(map(str, path))}: "
+                 f"kernels vs plain path {e} > {GRAD_TOL} x max(1, max "
+                 "|leaf|)")
     if not all(v <= GRAD_TOL for v in rel.values()):
-        fail(f"step 0 kernels vs plain path, relative diff {rel} > "
+        fail(f"{impl} step 0 kernels vs plain path, relative diff {rel} > "
              f"{GRAD_TOL}")
-    say("train", card_line, f"step 0 kernels vs plain path: loss "
-        f"{float(m_k['loss']):.4f} vs {float(m_p['loss']):.4f} (rel "
+    say("train", card_line, f"st_impl={impl} step 0 kernels vs plain path: "
+        f"loss {float(m_k['loss']):.4f} vs {float(m_p['loss']):.4f} (rel "
         f"{rel['loss']:.3g}), grad_norm rel {rel['grad_norm']:.3g}, "
         f"gradient leaves max |diff| / max(1, max |leaf|) {grad_err:.3g} "
         f"(tol {GRAD_TOL})")
 
-    # the main path: TRAIN_STEPS steps through the kernels
+    # the path's main run: TRAIN_STEPS steps through the kernels
+    train_step = make_train_step(config)
     state = state0
     losses, recons = [], []
-    st_inline.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
-        before = dict(st_inline.LAUNCHES)
+        before = launches()
         state, m = train_step(state, images, digits)
-        for k in FWD + BWD:
-            if st_inline.LAUNCHES[k] - before[k] != steps:
-                fail(f"train step {i} launched {k} "
-                     f"{st_inline.LAUNCHES[k] - before[k]} times, expected "
-                     f"{steps}")
+        expect_launches(before, per_step, f"{impl} train step {i}")
         losses.append(float(m["loss"]))
         recons.append(float(m["reconstruction_loss"]))
     seconds = time.perf_counter() - t0
-    launches = dict(st_inline.LAUNCHES)
+    main_launches = {k: launches()[k] for k in per_step}
     if not np.all(np.isfinite(losses)):
-        fail(f"non-finite training loss: {losses}")
+        fail(f"{impl}: non-finite training loss: {losses}")
     still = [path for (path, a), b in zip(tree_leaves_with_path(state.params),
                                           tree_leaves(state0.params))
              if torch.equal(a, b)]
     if still:
-        fail(f"parameter leaves that did not move: {still}")
+        fail(f"{impl}: parameter leaves that did not move: {still}")
     first5, last5 = float(np.mean(recons[:5])), float(np.mean(recons[-5:]))
     if not last5 < first5:
-        fail(f"mean reconstruction loss of the last 5 steps {last5} is not "
-             f"below that of the first 5 {first5}")
-    say("train", card_line, f"{TRAIN_STEPS} steps in {seconds:.2f} s, "
-        f"launches={launches}, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
-        f"reconstruction loss mean of first 5 {first5:.3f}, last 5 "
-        f"{last5:.3f}; every parameter leaf moved")
+        fail(f"{impl}: mean reconstruction loss of the last 5 steps {last5} "
+             f"is not below that of the first 5 {first5}")
+    say("train", card_line, f"st_impl={impl} {TRAIN_STEPS} steps in "
+        f"{seconds:.2f} s, launches={main_launches}, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}, reconstruction loss mean of "
+        f"first 5 {first5:.3f}, last 5 {last5:.3f}; every parameter leaf "
+        "moved")
 
     out = make_eval_step(config)(state.params, images, digits, state.step,
                                  generator=step_generator(0, state.step,
@@ -311,13 +417,14 @@ def check_train(config, state0, images, digits, train_step,
     bad = [k for k, v in summary.items()
            if bool(torch.isfinite(v)) != bool(torch.isfinite(defined[k]))]
     if bad or set(summary) != set(defined):
-        fail(f"eval summaries not finite where their slice is non-empty: "
-             f"{bad}")
+        fail(f"{impl}: eval summaries not finite where their slice is "
+             f"non-empty: {bad}")
     n_nan = sum(1 for v in defined.values() if not torch.isfinite(v))
-    say("train", card_line, f"eval summary of the trained state: "
-        f"{len(summary)} values, all finite except {n_nan} empty slices "
-        f"(NaN by definition); accuracy {float(summary['accuracy']):.4f}, "
-        f"loss {float(summary['loss']):.3f}")
+    say("train", card_line, f"st_impl={impl} eval summary of the trained "
+        f"state: {len(summary)} values, all finite except {n_nan} empty "
+        f"slices (NaN by definition); accuracy "
+        f"{float(summary['accuracy']):.4f}, loss "
+        f"{float(summary['loss']):.3f}")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = save_checkpoint(tmp, state)
@@ -331,10 +438,25 @@ def check_train(config, state0, images, digits, train_step,
                             for a, b in zip(tree_leaves(a_tree),
                                             tree_leaves(b_tree)))
     if not same:
-        fail("checkpoint round trip changed the state")
-    say("train", card_line, f"checkpoint at step {state.step} saved and "
-        "loaded back bit for bit (params, bf16 moments, counts)")
-    return launches
+        fail(f"{impl}: checkpoint round trip changed the state")
+    say("train", card_line, f"st_impl={impl} checkpoint at step "
+        f"{state.step} saved and loaded back bit for bit (params, bf16 "
+        "moments, counts)")
+
+    runs = []
+    for _ in range(2):
+        state, bits = state0, []
+        for _ in range(DETERMINISM_STEPS):
+            state, m = train_step(state, images, digits)
+            bits.append(m["loss"].view(torch.int32).item())
+        runs.append(bits)
+    if runs[0] != runs[1]:
+        first = next(i for i, (a, b) in enumerate(zip(*runs)) if a != b)
+        fail(f"{impl}: two runs of {DETERMINISM_STEPS} steps from the same "
+             f"state part at step {first}")
+    say("train", card_line, f"st_impl={impl} two runs of "
+        f"{DETERMINISM_STEPS} steps from the same state: losses bit-equal")
+    return main_launches
 
 
 def train_step_ms(train_step, state, images, digits, runs: int = 10):
@@ -361,41 +483,33 @@ def main() -> None:
     say("device", card_line, f"name={name} count={count} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
 
-    # 2. build
-    lib = build.load("st_inline")
-    report = " | ".join(line.strip() for line in lib.ptxas_report.splitlines()
-                        if "registers" in line or "smem" in line
-                        or "entry function" in line or "spill" in line)
-    say("build", card_line, f"seconds={lib.build_seconds:.1f} "
-        f"library={lib.path.name} ptxas: {report}")
+    # 2. build: one nvcc per source, all started together
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        libs = dict(zip(LIBRARIES, pool.map(build.load, LIBRARIES)))
+    for lib_name, lib in libs.items():
+        report = " | ".join(
+            line.strip() for line in lib.ptxas_report.splitlines()
+            if "registers" in line or "smem" in line
+            or "entry function" in line or "spill" in line)
+        say("build", card_line, f"{lib_name}: seconds="
+            f"{lib.build_seconds:.1f} library={lib.path.name} ptxas: "
+            f"{report}")
+    say("build", card_line, f"all {len(libs)} libraries in "
+        f"{time.perf_counter() - t_build:.1f} s")
 
     # 3. kernels against their plain versions
-    err = {k: 0.0 for k in FWD + BWD}
-    scalar_err = {k: 0.0 for k in BWD}
+    err = {k: 0.0 for k in KERNELS}
+    scalar_err = {k: 0.0 for k in KERNELS}
     for b in (BATCH, 1, 7):
         d = kernel_inputs(b, seed=b)
         e_in = core_inputs(d, seed=100 + b)
-        for kname, got_fn, want_fn in (
-                ("inline_attention_read", run_read, run_read_plain),
-                ("inline_write_accumulate", run_write, run_write_plain)):
+        for kname, (got_fn, want_fn, n_mat) in KERNELS.items():
             got = got_fn(d, e_in)
             torch.cuda.synchronize()
             want = want_fn(d, e_in)
             torch.cuda.synchronize()
-            e = float((got - want).abs().max())
-            err[kname] = max(err[kname], e)
-            if not (e <= KERNEL_TOL):
-                fail(f"{kname} at B={b}: max abs diff {e} > {KERNEL_TOL}")
-        for kname, got_fn, want_fn in (
-                ("inline_attention_read_bwd", run_read_bwd,
-                 run_read_bwd_plain),
-                ("inline_write_accumulate_bwd", run_write_bwd,
-                 run_write_bwd_plain)):
-            got = got_fn(d, e_in)
-            torch.cuda.synchronize()
-            want = want_fn(d, e_in)
-            torch.cuda.synchronize()
-            mat, scal = bwd_errors(got, want)
+            mat, scal = errors(got, want, n_mat)
             err[kname] = max(err[kname], mat)
             scalar_err[kname] = max(scalar_err[kname], scal)
             if not (mat <= KERNEL_TOL and scal <= SCALAR_TOL):
@@ -406,78 +520,33 @@ def main() -> None:
         + " ".join(f"{k}={v:.3g}" for k, v in err.items())
         + f" (tol {KERNEL_TOL}); backward scalar cotangents |diff| / "
         "max(1, |plain|) "
-        + " ".join(f"{k}={v:.3g}" for k, v in scalar_err.items())
+        + " ".join(f"{k}={v:.3g}" for k, v in scalar_err.items()
+                   if k.endswith("_bwd"))
         + f" (tol {SCALAR_TOL}); B=64,1,7")
 
-    # 4. the main path: serving the shipped CNN checkpoint
-    arch = checkpoint_arch(CKPT)
-    config = DEFAULT_TRAINING_CONFIG.replace(**arch, st_impl="inline")
+    # 4. serving the shipped CNN checkpoint, through each path's kernels
     params = load_params(CKPT)
     with np.load(FIXTURE) as z:
         canvases, truth = z["canvases"], z["digits"]
-    requests = [canvases[:1], canvases[:8], canvases]
-    wrapper = ModelWrapper(config, params, seed=0, device=DEVICE)
-    plain = ModelWrapper(config.replace(st_impl="xla"), params, seed=0,
-                         decoder_layout="scan", device=DEVICE)
+    wrappers = {impl: check_serve(impl, params, canvases, truth, card_line)
+                for impl in PATHS}
 
-    st_inline.reset_launches()
-    served = []
-    for req in requests:
-        before = dict(st_inline.LAUNCHES)
-        served.append(wrapper.infer(req))
-        for k, v in st_inline.LAUNCHES.items():
-            want = config.max_steps if k in FWD else 0
-            if v - before[k] != want:
-                fail(f"{k} launched {v - before[k]} times in one infer "
-                     f"call of {len(req)} canvases, expected {want}")
-    serve_launches = {k: st_inline.LAUNCHES[k] for k in FWD}
-    for k, v in serve_launches.items():
-        if v == 0:
-            fail(f"{k} was not launched on the serve path")
-
-    digits, _, recons, windows, _, losses = served[-1]
-    for i, r in enumerate(recons):
-        if r.shape != (CS, CS) or not np.all(np.isfinite(r)):
-            fail(f"reconstruction {i}: shape {r.shape} or non-finite values")
-    if not np.all(np.isfinite(losses)):
-        fail("non-finite reconstruction loss")
-    accuracy = float(np.mean(np.asarray(digits) == truth))
-    if accuracy < MIN_ACCURACY:
-        fail(f"digit-count accuracy {accuracy} < {MIN_ACCURACY}")
-
-    path_err = 0.0
-    for req, got in zip(requests, served):
-        want = plain.infer(req)
-        if list(got[0]) != list(want[0]):
-            fail(f"digit counts differ from the plain path on {len(req)} "
-                 f"canvases")
-        path_err = max(path_err, max(float(np.max(np.abs(a - b)))
-                                     for a, b in zip(got[2], want[2])))
-    if not (path_err <= PATH_TOL):
-        fail(f"reconstructions differ from the plain path by {path_err}")
-    say("serve", card_line, f"requests={[len(r) for r in requests]} "
-        f"launches={serve_launches} accuracy={accuracy:.4f} "
-        f"recon_vs_plain_max_abs={path_err:.3g} (tol {PATH_TOL})")
-
-    # 5. train: the main path of this slice
-    train_cfg = DEFAULT_TRAINING_CONFIG.replace(cnn=True, st_impl="inline")
+    # 5. train, through each path's kernels
+    train_cfg = DEFAULT_TRAINING_CONFIG.replace(cnn=True)
     images = torch.from_numpy(np.concatenate([canvases, canvases[:4]])).to(
         DEVICE)
     digits = torch.from_numpy(np.concatenate([truth, truth[:4]])).to(DEVICE)
     state0 = create_train_state(train_cfg, seed=0, device=DEVICE)
-    train_step = make_train_step(train_cfg)
-    train_launches = check_train(train_cfg, state0, images, digits,
-                                 train_step, card_line)
+    train_launches = {}
+    for impl in PATHS:
+        train_launches.update(check_train(train_cfg.replace(st_impl=impl),
+                                          state0, images, digits, card_line))
 
     # 6. times at B = 64
     d = kernel_inputs(BATCH, seed=1234)
-    wy_r = _axis_weight_matrix(d["s"], d["y"], WS, CS)
-    wx_r = _axis_weight_matrix(d["s"], d["x"], WS, CS).transpose(1, 2)
-    inv_s = 1.0 / d["s"]
-    wy_w = (_axis_weight_matrix(inv_s, -d["y"] * inv_s, CS, WS)
-            * d["coeff"][:, None, None])
-    wx_w = _axis_weight_matrix(inv_s, -d["x"] * inv_s, CS, WS).transpose(1, 2)
-    canvas3 = d["canvas"].reshape(-1, CS, CS)
+    e_in = core_inputs(d, seed=4321)
+    wy_r, wx_r = e_in["w_read"]
+    wy_w, wx_w = e_in["w_write"]
     f32 = 4
     read_bytes = f32 * BATCH * (CS * CS + 4 + WS * WS)
     read_flops = 2 * BATCH * (WS * CS * CS + WS * WS * CS)
@@ -493,21 +562,33 @@ def main() -> None:
     write_bwd_bytes = f32 * BATCH * (2 * WS * WS + CS * CS + 10)
     write_bwd_flops = 2 * BATCH * (CS * CS * WS + 2 * CS * WS * WS
                                    + CS * WS + 2 * CS * WS + 2 * CS * CS)
-    e_in = core_inputs(d, seed=4321)
-    # library yardstick of a backward: torch.autograd.grad through the
-    # prebuilt-weight chain with respect to the input and both weights
-    # (no scalar contraction), timed as forward + grad less the forward
+    # streamed weights: both [B, out, in] weight matrices read as inputs;
+    # the backward's dWy and dWx are outputs, dense, as is their work (gwx,
+    # tmp, dWy, d_win, dWx, and d_coeff as <gwx, tmp>)
+    dots_bytes = f32 * BATCH * (CS * CS + 2 * WS * CS + WS * WS)
+    dots_flops = read_flops
+    wmac_bytes = f32 * BATCH * (2 * CS * WS + WS * WS + 1 + 2 * CS * CS)
+    wmac_flops = write_flops
+    wmac_bwd_bytes = f32 * BATCH * (2 * CS * WS + WS * WS + 1 + CS * CS
+                                    + 2 * CS * WS + WS * WS + 1)
+    wmac_bwd_flops = 2 * BATCH * (2 * CS * CS * WS + 3 * CS * WS * WS
+                                  + CS * WS)
+    # library yardstick: a batched matmul chain with the weights prebuilt;
+    # of a backward, torch.autograd.grad through it with respect to the
+    # input and both weights (no scalar contraction, and for the streamed
+    # write no d_coeff), timed as forward + grad less the forward
     leaves_r = [t.detach().clone().requires_grad_(True)
-                for t in (d["img"], wy_r, wx_r)]
+                for t in (d["img"], wy_r, wx_r.transpose(1, 2))]
     leaves_w = [t.detach().clone().requires_grad_(True)
-                for t in (d["win"], wy_w, wx_w)]
+                for t in (d["win"], wy_w * d["coeff"][:, None, None],
+                          wx_w.transpose(1, 2))]
 
     def lib_read_fwd():
         return torch.matmul(torch.matmul(leaves_r[1], leaves_r[0]),
                             leaves_r[2])
 
     def lib_write_fwd():
-        return torch.baddbmm(canvas3, torch.bmm(leaves_w[1], leaves_w[0]),
+        return torch.baddbmm(canvas3(d), torch.bmm(leaves_w[1], leaves_w[0]),
                              leaves_w[2])
 
     def lib_read_bwd():
@@ -518,49 +599,63 @@ def main() -> None:
                                    e_in["g_write"])
 
     rows = []
-    for kname, line, fn, plain_fn, lib_fn, lib_less, nbytes, flops in (
-            ("inline_attention_read", 222, lambda: run_read(d, e_in),
-             lambda: run_read_plain(d, e_in), lib_read_fwd, None,
-             read_bytes, read_flops),
-            ("inline_write_accumulate", 70, lambda: run_write(d, e_in),
-             lambda: run_write_plain(d, e_in), lib_write_fwd, None,
-             write_bytes, write_flops),
-            ("inline_attention_read_bwd", 234, lambda: run_read_bwd(d, e_in),
-             lambda: run_read_bwd_plain(d, e_in), lib_read_bwd,
-             lib_read_fwd, read_bwd_bytes, read_bwd_flops),
-            ("inline_write_accumulate_bwd", 83,
-             lambda: run_write_bwd(d, e_in),
-             lambda: run_write_bwd_plain(d, e_in), lib_write_bwd,
-             lib_write_fwd, write_bwd_bytes, write_bwd_flops)):
-        ms = device_ms(fn)
-        plain_ms = device_ms(plain_fn)
+    for kname, source, replaces, lib_fn, lib_less, nbytes, flops in (
+            ("inline_attention_read", "st_inline.cu", "st_inline.py:222",
+             lib_read_fwd, None, read_bytes, read_flops),
+            ("inline_write_accumulate", "st_inline.cu", "st_inline.py:70",
+             lib_write_fwd, None, write_bytes, write_flops),
+            ("inline_attention_read_bwd", "st_inline.cu", "st_inline.py:234",
+             lib_read_bwd, lib_read_fwd, read_bwd_bytes, read_bwd_flops),
+            ("inline_write_accumulate_bwd", "st_inline.cu",
+             "st_inline.py:83", lib_write_bwd, lib_write_fwd,
+             write_bwd_bytes, write_bwd_flops),
+            ("fused_write_accumulate", "st_fused.cu", "st_fused.py:52",
+             lib_write_fwd, None, wmac_bytes, wmac_flops),
+            ("fused_write_accumulate_bwd", "st_fused.cu", "st_fused.py:63",
+             lib_write_bwd, lib_write_fwd, wmac_bwd_bytes, wmac_bwd_flops),
+            ("pallas_attention_read", "st_pallas.cu", "st_pallas.py:41",
+             lib_read_fwd, None, dots_bytes, dots_flops)):
+        fn, plain_fn, _ = KERNELS[kname]
+        ms = device_ms(lambda: fn(d, e_in))
+        plain_ms = device_ms(lambda: plain_fn(d, e_in))
         library_ms = device_ms(lib_fn)
         if lib_less is not None:
             library_ms -= device_ms(lib_less)
         b_ms, b_by = bound_ms(nbytes, flops)
         rows.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": f"air_tpu/kernels/st_inline.py:{line}",
+            "name": kname, "route": "cuda",
+            "source": f"air_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"air_tpu/kernels/{replaces}",
             "launches": train_launches[kname], "max_abs_err": err[kname],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms})
         say("times", card_line, f"{kname} B={BATCH}: ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
             f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} B, {flops} FLOP)")
+    # the streamed-weight resample's other direction (exported, not on the
+    # model's path): window -> canvas
+    fn, plain_fn, _ = KERNELS["pallas_attention_write"]
+    b_ms, b_by = bound_ms(f32 * BATCH * (WS * WS + 2 * CS * WS + CS * CS),
+                          write_flops - 2 * BATCH * CS * CS)
+    say("times", card_line, f"pallas_attention_write B={BATCH}: "
+        f"ms={device_ms(lambda: fn(d, e_in)):.5f} "
+        f"plain_ms={device_ms(lambda: plain_fn(d, e_in)):.5f} "
+        f"bound_ms={b_ms:.6f} ({b_by})")
 
-    lat = {}
-    for n in (1, 64):
-        req = canvases[np.arange(n) % len(canvases)]
-        wrapper.infer(req)
-        runs = []
-        for _ in range(10):
-            t = time.perf_counter()
+    for impl, wrapper in wrappers.items():
+        lat = {}
+        for n in (1, 64):
+            req = canvases[np.arange(n) % len(canvases)]
             wrapper.infer(req)
-            runs.append((time.perf_counter() - t) * 1e3)
-        lat[n] = float(np.median(runs))
-    say("times", card_line, f"infer latency median of 10: "
-        f"1 canvas {lat[1]:.3f} ms, 64 canvases {lat[64]:.3f} ms")
-    for impl in ("inline", "xla"):
+            runs = []
+            for _ in range(10):
+                t = time.perf_counter()
+                wrapper.infer(req)
+                runs.append((time.perf_counter() - t) * 1e3)
+            lat[n] = float(np.median(runs))
+        say("times", card_line, f"st_impl={impl} infer latency median of "
+            f"10: 1 canvas {lat[1]:.3f} ms, 64 canvases {lat[64]:.3f} ms")
+    for impl in (*PATHS, "xla"):
         ms = train_step_ms(make_train_step(train_cfg.replace(st_impl=impl)),
                            state0, images, digits)
         say("times", card_line, f"train step st_impl={impl} batch {BATCH} "

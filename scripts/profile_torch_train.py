@@ -7,12 +7,12 @@ Builds the full-width training state of DEFAULT_TRAINING_CONFIG with
 cnn=True (create_train_state, seed 0), takes batches of 64 from the
 committed fixture (air_tpu_torch/assets/serve_canvases.npz: the 60 canvases
 and their first 4 again), and traces 10 train steps with torch.profiler for
-each st_impl ("inline": the hand-written kernels forward and backward;
-"xla": the plain PyTorch products). Prints, per st_impl: the wall time per
-step with the profiler on, the device busy share (summed device time of
-kernels and copies over that wall time), the kernels and copies per step,
-and those that take the most device time. Prints the card's name and power
-limit first. Needs a card; writes nothing.
+each st_impl ("inline" and "pallas": the hand-written kernels forward and
+backward; "xla": the plain PyTorch products). Prints, per st_impl: the
+wall time per step with the profiler on, the device busy share (summed
+device time of kernels and copies over that wall time), the kernels and
+copies per step, and those that take the most device time. Prints the
+card's name and power limit first. Needs a card; writes nothing.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def main() -> None:
     images = torch.from_numpy(np.concatenate([canvases, canvases[:4]])).cuda()
     targets = torch.from_numpy(np.concatenate([digits, digits[:4]])).cuda()
 
-    for impl in ("inline", "xla"):
+    for impl in ("inline", "pallas", "xla"):
         config = DEFAULT_TRAINING_CONFIG.replace(cnn=True, st_impl=impl)
         state = create_train_state(config, seed=0, device="cuda")
         step = make_train_step(config)

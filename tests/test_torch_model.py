@@ -1,7 +1,8 @@
 """The port's AIR forward pass (air_tpu_torch.models.air.air_forward)
 against the JAX package's, every AIROutputs field, with the same parameters
 and the same draws: the noise is rebuilt from JAX's key tree and fed to the
-port. JAX takes the inline TPU kernels in interpret mode.
+port. JAX takes its TPU kernels in interpret mode: the pallas ones where the
+port takes st_impl="pallas", else the inline ones.
 
 Tolerance 1e-4 abs/rel on values: the LSTM's [B, 1408] x [1408, 1024]
 product and the 2500-pixel BCE sums are reduced in another order by each
@@ -76,10 +77,12 @@ def assert_outputs_close(got, want):
             np.testing.assert_allclose(g, w, err_msg=field, **TOL)
 
 
-@pytest.mark.parametrize("st_impl", ["inline", "xla"])
+@pytest.mark.parametrize("st_impl", ["inline", "pallas", "xla"])
 @pytest.mark.parametrize("train", [True, False])
 def test_small_config_matches_jax(train, st_impl):
-    jax_cfg = JaxConfig(**SMALL)
+    # JAX takes its pallas kernels for the port's pallas path, else inline
+    jax_impl = "pallas" if st_impl == "pallas" else "inline"
+    jax_cfg = JaxConfig(**{**SMALL, "st_impl": jax_impl})
     params = init_air_params(jax.random.PRNGKey(0), jax_cfg)
     rng = np.random.default_rng(0)
     images = rng.uniform(size=(6, 400)).astype(np.float32)
@@ -188,9 +191,8 @@ def test_config_copy_matches_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"decoder_layout": "stepparallel"}, {"st_impl": "pallas"},
-    {"compute_dtype": "bfloat16"}, {"rnn_input_hoist": True},
-    {"st_pad_mode": "clamp_cancel"}])
+    {"decoder_layout": "stepparallel"}, {"compute_dtype": "bfloat16"},
+    {"rnn_input_hoist": True}, {"st_pad_mode": "clamp_cancel"}])
 def test_paths_of_later_slices_raise(override):
     cfg = AIRConfig(**{**SMALL, **override})
     images = torch.zeros((2, 400))

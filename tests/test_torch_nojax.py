@@ -18,7 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # modules the port must have; the walk imports every module it finds
 PORT_MODULES = (
     "air_tpu_torch.interop", "air_tpu_torch.tree",
-    "air_tpu_torch.kernels.build", "air_tpu_torch.kernels.st_inline",
+    "air_tpu_torch.kernels.build", "air_tpu_torch.kernels.st_fused",
+    "air_tpu_torch.kernels.st_inline", "air_tpu_torch.kernels.st_pallas",
     "air_tpu_torch.models.air", "air_tpu_torch.models.config",
     "air_tpu_torch.nn.cnn", "air_tpu_torch.nn.layers", "air_tpu_torch.nn.lstm",
     "air_tpu_torch.nn.vae", "air_tpu_torch.ops.concrete",
@@ -39,7 +40,8 @@ for mod in pkgutil.walk_packages(air_tpu_torch.__path__, "air_tpu_torch."):
 missing = set(PORT_MODULES) - walked
 assert not missing, missing
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
-for script in ("profile_torch_serve.py", "profile_torch_train.py"):
+for script in ("profile_torch_serve.py", "profile_torch_train.py",
+               "determinism_torch_train.py"):
     runpy.run_path("scripts/" + script, run_name="profile")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "air_tpu")
           and sys.modules[m] is not None]

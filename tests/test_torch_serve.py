@@ -1,6 +1,10 @@
 """The port's serving facade (air_tpu_torch.serve.model_wrapper) on the
 shipped CNN checkpoint, held against the JAX package's ModelWrapper, and
-the committed serving fixture held against the JAX package's generator."""
+the committed serving fixture held against the JAX package's generator.
+
+Tolerance of the served outputs against the JAX wrapper's, given JAX's
+draws: 1e-4 abs/rel, as the forward pass (tests/test_torch_model.py);
+digit counts exactly."""
 
 import os
 
@@ -13,10 +17,11 @@ from air_tpu.data import MultiMNISTConfig, generate_dataset, get_mnist
 from air_tpu.models.config import DEFAULT_TRAINING_CONFIG as JAX_CFG
 from air_tpu.serve.model_wrapper import ModelWrapper as JaxWrapper
 from air_tpu.train.checkpoint import load_params as jax_load_params
-from air_tpu_torch.kernels import st_inline
+from air_tpu_torch.kernels import st_fused, st_inline, st_pallas
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG as CFG
 from air_tpu_torch.serve.model_wrapper import ModelWrapper
 from air_tpu_torch.train.checkpoint import checkpoint_arch, load_params
+from tests.test_torch_model import jax_noise
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CNN_CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
@@ -103,6 +108,51 @@ def test_infer_structure_matches_jax(wrapper, fixture, n):
         for k in (1, 2, 3, 4, 5):
             assert type(got[k][i]) is type(want[k][i])
             assert np.asarray(got[k][i]).dtype == np.asarray(want[k][i]).dtype
+
+
+def test_pallas_infer_counts_digits(config, fixture):
+    """st_impl="pallas" serves the checkpoint at the same bar, through the
+    streamed-weight Functions (their plain versions on the CPU)."""
+    canvases, truth = fixture
+    wrapper = ModelWrapper(config.replace(st_impl="pallas"),
+                           load_params(CNN_CKPT), seed=0, device="cpu")
+    st_pallas.reset_launches()
+    st_fused.reset_launches()
+    digits = wrapper.infer(canvases)[0]
+    acc = float(np.mean(np.asarray(digits) == truth))
+    assert acc >= 0.9, f"port's shipped CNN checkpoint accuracy {acc}"
+    assert set(st_pallas.LAUNCHES.values()) == {0}
+    assert set(st_fused.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("n", [1, 8, 60])
+def test_pallas_infer_matches_jax(config, fixture, n):
+    """The port's wrapper with st_impl="pallas", given the draws of the JAX
+    wrapper's call (fold_in(PRNGKey(seed), call)), returns the JAX
+    wrapper's answers: padding, forward through the streamed-weight
+    kernels' Functions, packing and trimming."""
+    jax_cfg = JAX_CFG.replace(cnn=True, st_impl="pallas")
+    jax_wrapper = JaxWrapper(jax_cfg, jax_load_params(CNN_CKPT), seed=4)
+    wrapper = ModelWrapper(config.replace(st_impl="pallas"),
+                           load_params(CNN_CKPT), seed=4, device="cpu")
+    forward = wrapper._eval
+    calls = []
+
+    def with_jax_draws(params, images, targets, step, generator=None):
+        calls.append(step)
+        key = jax.random.fold_in(jax.random.PRNGKey(4), len(calls))
+        return forward(params, images, targets, step,
+                       noise=jax_noise(key, jax_cfg, len(images)))
+
+    wrapper._eval = with_jax_draws
+    images = fixture[0][:n]
+    got, want = wrapper.infer(images), jax_wrapper.infer(images)
+    assert calls == [0]
+    assert got[0] == want[0]
+    for k in (1, 2, 3, 4, 5):
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       rtol=1e-4, atol=1e-4)
 
 
 def test_infer_batch_trims_to_items(wrapper, fixture):

@@ -290,7 +290,7 @@ def test_summarize_outputs_matches_jax():
     assert any(np.isnan(float(v)) for v in want.values())
 
 
-@pytest.mark.parametrize("st_impl", ["inline", "xla"])
+@pytest.mark.parametrize("st_impl", ["inline", "pallas", "xla"])
 def test_eval_summary_step_matches_jax(st_impl):
     kw = {**SMALL, **MAIN_OPT, "st_impl": st_impl,
           "annealing_schedules": {"z_pres_prior_log_odds": {

@@ -1,8 +1,9 @@
 """One train step of the port (air_tpu_torch.train.steps.make_train_step)
 against the JAX package's make_train_step from the same state, images and
 draws (rebuilt from fold_in(state.key, step)), on the SMALL config and on
-the shipped CNN checkpoint at full width, through st_impl "inline" (the
-kernels' autograd Functions, their plain versions on the CPU) and "xla".
+the shipped CNN checkpoint at full width, through st_impl "inline" and
+"pallas" (the kernels' autograd Functions, their plain versions on the CPU)
+and "xla".
 
 Tolerances: metrics and updated parameters 1e-4 abs/rel, as the forward pass
 (tests/test_torch_model.py): the frameworks reduce the LSTM product and the
@@ -91,7 +92,7 @@ def check_train_step(jcfg, cfg, jstate, images, targets, jax_step_kw=None,
     return new, metrics
 
 
-@pytest.mark.parametrize("st_impl", ["inline", "xla"])
+@pytest.mark.parametrize("st_impl", ["inline", "pallas", "xla"])
 def test_train_step_matches_jax_small(st_impl):
     kw = {**SMALL, **MAIN_OPT, "st_impl": st_impl}
     jcfg = JaxConfig(**kw)
@@ -127,7 +128,7 @@ def test_train_step_matches_jax_with_background_composite():
     assert float(metrics["bg_intensity"]) == pytest.approx(0.3)
 
 
-@pytest.mark.parametrize("st_impl", ["inline", "xla"])
+@pytest.mark.parametrize("st_impl", ["inline", "pallas", "xla"])
 def test_train_step_matches_jax_on_shipped_checkpoint(st_impl):
     """The main path's configuration at full width (CNN, LSTM 256, VAE
     (512,256)->50->(256,512), bf16 Adam moments, clip 1.0, lr 1e-4), from
