@@ -14,82 +14,122 @@
 // What bounds it on an H100: the read at B = 64 moves 1.56 MB (images, both
 // weight matrices, the windows: 0.47 us at 3.35 TB/s) for 14.0 MFLOP
 // (0.21 us at 67 TFLOP/s fp32), so bytes bound it; both are far below the
-// few microseconds of a launch.
+// few microseconds of a launch, so what a launch costs is latency: the
+// round trip of staging, and the length of the dependent FMA chains.
 //
-// Design, right and simple first: one block per image. The block stages the
-// image and both weight matrices in shared memory, forms tmp = Wy @ img
-// there, then writes out = tmp @ Wx^T, so the intermediate never touches
-// device memory. Every product is an fp32 FMA in a fixed order (no TF32, no
-// atomics). Sizes whose operands do not fit the 227 KB of shared memory a
-// block can have are refused by the launcher's attribute call and by the
-// wrapper.
+// Design (st_resample.cuh): each image is split into groups of output rows,
+// one block per (image, group), so a batch of 64 fills the card and one
+// image spans several SMs. A block stages the image, Wx and its rows of Wy
+// with 1-D bulk copies on an mbarrier (4-byte cp.async where a range is not
+// 16-byte sized and aligned), transposes Wx in shared memory, forms its rows
+// of tmp = Wy @ img there, then writes out = tmp @ Wx^T from 2 x 4 register
+// tiles. Shared loads are free of bank conflicts, and every output is one
+// fmaf chain in ascending order (no atomics), so the bits do not depend on
+// the split.
+//
+// No tensor cores: the kernel is held to fp32 at 1e-5, Hopper's tensor cores
+// take fp32 only as TF32 (10-bit mantissa), which the port's numeric flags
+// forbid (models/air.py:_numeric_flags), and the FLOP bound lies below the
+// byte bound, so they would not lower the bound.
 
-#include <cuda_runtime.h>
+#include "st_resample.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace st_resample;
 
-__global__ void __launch_bounds__(kThreads)
+// kIh, kIw, kOw: the sizes fixed at compile time, or 0 to take them from the
+// arguments (st_resample.cuh, Sizes).
+template <int kIh, int kIw, int kOw>
+__global__ void __launch_bounds__(kMaxThreads)
 st_fused_dots_kernel(const float* __restrict__ wy,
                      const float* __restrict__ img,
                      const float* __restrict__ wx, float* __restrict__ out,
-                     int oh, int ow, int ih, int iw) {
-  extern __shared__ float smem[];
-  float* img_s = smem;             // [ih, iw]
-  float* wy_s = img_s + ih * iw;   // [oh, ih]
-  float* wx_s = wy_s + oh * ih;    // [ow, iw]
-  float* tmp_s = wx_s + ow * iw;   // [oh, iw] = Wy @ img
-  const size_t b = blockIdx.x;
-  const float* img_b = img + b * ih * iw;
-  const float* wy_b = wy + b * oh * ih;
-  const float* wx_b = wx + b * ow * iw;
-  for (int idx = threadIdx.x; idx < ih * iw; idx += blockDim.x) {
-    img_s[idx] = img_b[idx];
+                     int oh, int ow_arg, int ih_arg, int iw_arg, int groups,
+                     int rows, int bulk) {
+  const int ih = kIh ? kIh : ih_arg, iw = kIw ? kIw : iw_arg;
+  const int ow = kOw ? kOw : ow_arg;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int b = blockIdx.x / groups, g = blockIdx.x - b * groups;
+  const int r0 = g * rows, rg = min(rows, oh - r0), half = rows / 2;
+  const Layout lay(rows, ow, ih, iw, false);
+  float* x_s = smem + lay.x;
+  float* wy_s = smem + lay.wy;
+  float* wx_s = smem + lay.wx;
+  float* wxt_s = smem + lay.wxt;
+  float* tmp_s = smem + lay.tmp;
+  const float* wy_g = wy + (static_cast<size_t>(b) * oh + r0) * ih;
+  const float* img_b = img + static_cast<size_t>(b) * ih * iw;
+  const float* wx_b = wx + static_cast<size_t>(b) * ow * iw;
+
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      mbar_init(&bar);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const uint32_t n_x = 4u * ih * iw, n_wy = 4u * rg * ih, n_wx = 4u * ow * iw;
+      mbar_expect_tx(&bar, n_x + n_wy + n_wx);
+      bulk_copy(x_s, img_b, n_x, &bar);
+      bulk_copy(wy_s, wy_g, n_wy, &bar);
+      bulk_copy(wx_s, wx_b, n_wx, &bar);
+    }
+    mbar_wait(&bar, 0);
+  } else {
+    copy4(x_s, img_b, ih * iw);
+    copy4(wy_s, wy_g, rg * ih);
+    copy4(wx_s, wx_b, ow * iw);
+    copy4_commit();
+    copy4_wait<0>();
+    __syncthreads();
   }
-  for (int idx = threadIdx.x; idx < oh * ih; idx += blockDim.x) {
-    wy_s[idx] = wy_b[idx];
-  }
-  for (int idx = threadIdx.x; idx < ow * iw; idx += blockDim.x) {
-    wx_s[idx] = wx_b[idx];
-  }
+
+  transpose_wx(wx_s, wxt_s, ow, iw);
+  first_product(wy_s, x_s, tmp_s, rg, half, ih, iw);
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < oh * iw; idx += blockDim.x) {
-    const int i = idx / iw, k = idx - i * iw;
-    float acc = 0.0f;
-    for (int j = 0; j < ih; ++j) acc = fmaf(wy_s[i * ih + j], img_s[j * iw + k], acc);
-    tmp_s[idx] = acc;
-  }
-  __syncthreads();
+  float acc[2][kTileCols];
+  if (!second_product(tmp_s, wxt_s, rg, half, ow, iw, acc)) return;
+  float* out_g = out + (static_cast<size_t>(b) * oh + r0) * ow;
+  for_each_output(rg, half, ow, acc,
+                  [&](int i, int l, float v) { out_g[i * ow + l] = v; });
+}
 
-  float* out_b = out + b * oh * ow;
-  for (int idx = threadIdx.x; idx < oh * ow; idx += blockDim.x) {
-    const int i = idx / ow, l = idx - i * ow;
-    float acc = 0.0f;
-    for (int k = 0; k < iw; ++k) acc = fmaf(tmp_s[i * iw + k], wx_s[l * iw + k], acc);
-    out_b[idx] = acc;
-  }
+using Kernel = decltype(&st_fused_dots_kernel<0, 0, 0>);
+
+// The model's read (canvas 50 -> window 28) and write with compile-time sizes.
+Kernel pick(int ih, int iw, int ow) {
+  if (ih == 50 && iw == 50 && ow == 28) return st_fused_dots_kernel<50, 50, 28>;
+  if (ih == 28 && iw == 28 && ow == 50) return st_fused_dots_kernel<28, 28, 50>;
+  return st_fused_dots_kernel<0, 0, 0>;
 }
 
 }  // namespace
 
-// Takes device pointers, the batch and the four sizes, and the stream;
-// enqueues one kernel and returns cudaGetLastError() (0 = the launch was
-// accepted), or the error of the shared-memory attribute call. The wrapper
-// checks shapes, types and contiguity.
+// Takes device pointers, the batch, the four sizes, the launch geometry the
+// wrapper computed (kernels/st_pallas.py:geometry: row groups per image, rows
+// per group, threads, shared-memory bytes per block, and 1 for the bulk-copy
+// path) and the stream; enqueues one kernel and returns cudaGetLastError()
+// (0 = the launch was accepted), the error of the shared-memory attribute
+// call, or cudaErrorInvalidValue for a geometry the kernel cannot run. The
+// wrapper checks shapes, types, contiguity and, for the bulk path, alignment.
 extern "C" int st_fused_dots(const float* wy, const float* img,
                              const float* wx, float* out, int batch, int oh,
-                             int ow, int ih, int iw, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(ih * iw + oh * ih + ow * iw + oh * iw) * sizeof(float);
-  if (smem > 48 * 1024) {
+                             int ow, int ih, int iw, int groups, int rows,
+                             int threads, int smem_bytes, int bulk,
+                             cudaStream_t stream) {
+  if (!geometry_ok(oh, ow, ih, iw, groups, rows, threads, smem_bytes, false)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Kernel kernel = pick(ih, iw, ow);
+  if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        st_fused_dots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  st_fused_dots_kernel<<<batch, kThreads, smem, stream>>>(wy, img, wx, out, oh,
-                                                          ow, ih, iw);
+  kernel<<<batch * groups, threads, smem_bytes, stream>>>(
+      wy, img, wx, out, oh, ow, ih, iw, groups, rows, bulk);
   return static_cast<int>(cudaGetLastError());
 }

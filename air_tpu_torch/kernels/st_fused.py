@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from air_tpu_torch.kernels import build
+from air_tpu_torch.kernels import build, st_pallas
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
 
 LAUNCHES = {"fused_write_accumulate": 0, "fused_write_accumulate_bwd": 0}
@@ -45,10 +45,18 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("st_fused").lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-    for fn, n_ptr in ((lib.st_wmac_fwd, 6), (lib.st_wmac_bwd, 9)):
-        fn.argtypes = [ptr] * n_ptr + [i32] * 3 + [ptr]
+    for fn, n_ptr, n_int in ((lib.st_wmac_fwd, 6, 8), (lib.st_wmac_bwd, 9, 3)):
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
     return lib
+
+
+def geometry(b: int, cs: int, ws: int) -> st_pallas.Geometry:
+    """Launch geometry of the forward kernel: the streamed-weight write
+    [B, ws, ws] -> [B, cs, cs] with the canvas rows (``st_pallas.geometry``
+    with ``canvas``)."""
+    return st_pallas.geometry(b, cs, cs, ws, ws, canvas=True,
+                              name="fused_write_accumulate")
 
 
 def _check_operands(windows, wy, wx, coeff, cs_cs: torch.Tensor) -> tuple:
@@ -95,12 +103,14 @@ def wmac_fwd(canvas, windows, wy, wx, coeff) -> torch.Tensor:
     b, cs, ws = _check_operands(windows, wy, wx, coeff, canvas)
     if canvas.device.type == "cpu":
         return wmac_fwd_plain(canvas, windows, wy, wx, coeff)
-    build.check_smem("fused_write_accumulate", ws * ws + 3 * cs * ws)
+    geo = geometry(b, cs, ws)
     wy, windows, wx, coeff, canvas = build.contiguous(wy, windows, wx, coeff,
                                                       canvas)
     out = torch.empty_like(canvas)
     build.launch(_lib().st_wmac_fwd, canvas.device, wy, windows, wx, coeff,
-                 canvas, out, b, cs, ws)
+                 canvas, out, b, cs, ws, geo.groups, geo.rows, geo.threads,
+                 geo.smem_bytes,
+                 st_pallas.bulk_ok(geo, wy, windows, wx, canvas, out))
     LAUNCHES["fused_write_accumulate"] += 1
     return out
 

@@ -17,12 +17,20 @@ dtype other than float32, a shape the kernel does not take or tensors on
 different devices. Each launch adds one to ``LAUNCHES[<direction>]``
 (``"pallas_attention_read"`` or ``"pallas_attention_write"``), and nothing
 else does.
+
+``geometry`` computes how a launch splits the work (``csrc/st_resample.cuh``,
+shared with the write-accumulate forward of ``st_fused``): row groups per
+image, rows per group, threads, shared-memory bytes per block and whether
+every staged range takes the 16-byte bulk copies; the launcher checks what
+it is given and the CPU tests reach it here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -37,11 +45,88 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# launch geometry, as csrc/st_resample.cuh takes it
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+FILL_BLOCKS = SMS         # blocks a launch aims for, where the rows allow
+MAX_HALF = 8              # rows per group at most 2 * MAX_HALF
+MAX_THREADS = 256         # the kernels' __launch_bounds__
+TILE_COLS = 4             # columns of a thread's register tile (kTileCols)
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch of a streamed-weight resample kernel: ``groups`` groups of
+    ``rows`` consecutive output rows per image (the last may have fewer), one
+    block of ``threads`` threads and ``smem_bytes`` of shared memory per
+    group; ``bulk`` when every staged range is a multiple of 16 bytes at a
+    16-byte offset, so that 1-D bulk copies bring it in (the wrapper also
+    needs 16-byte aligned pointers for that path)."""
+    groups: int
+    rows: int
+    threads: int
+    smem_bytes: int
+    bulk: bool
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _smem_floats(rows: int, ow: int, ih: int, iw: int, canvas: bool) -> int:
+    """Floats of one block's shared memory, as st_resample.cuh's Layout: X,
+    rows of Wy, Wx, Wx^T at an odd row stride, tmp at an odd row stride and,
+    for the write-accumulate, the canvas rows; each region on 16 bytes."""
+    n = (_round4(ih * iw) + _round4(rows * ih) + _round4(ow * iw)
+         + _round4(iw * (ow | 1)) + _round4(rows * (iw | 1)))
+    return n + (_round4(rows * ow) if canvas else 0)
+
+
+def geometry(batch: int, oh: int, ow: int, ih: int, iw: int,
+             canvas: bool = False, name: str = "fused_dots") -> Geometry:
+    """How a launch of ``out = Wy @ X @ Wx^T`` (Wy [B, oh, ih], X [B, ih, iw],
+    Wx [B, ow, iw]; with ``canvas`` the write-accumulate of [B, oh, ow]
+    canvases) splits its work. A thread's tile is rows p and p + half by
+    TILE_COLS columns, so ``rows`` is 2 * half. The largest half that still
+    gives FILL_BLOCKS blocks, one per SM, where the rows allow (more, smaller
+    blocks stage each image more often and measured slower on the card,
+    PERF.md), and at most h_max: half <= MAX_HALF, the threads within
+    MAX_THREADS, and a warp's rows of Wy (stride ih) in distinct
+    shared-memory banks (half <= 32 / gcd(ih, 32)); then the rows are spread
+    evenly over that many groups. Raises if a block does not fit."""
+    q = max(-(-iw // TILE_COLS), -(-ow // TILE_COLS))
+    h_max = max(1, min(MAX_HALF, 32 // math.gcd(ih, 32), MAX_THREADS // q))
+    want = -(-FILL_BLOCKS // batch)
+    half = h_max
+    while half > 1 and -(-oh // (2 * half)) < want:
+        half -= 1
+    groups = -(-oh // (2 * half))
+    half = -(-(-(-oh // groups)) // 2)
+    rows = 2 * half
+    threads = 32 * -(-(half * q) // 32)
+    if threads > MAX_THREADS:
+        raise ValueError(f"{name}: needs {threads} threads per block for "
+                         f"widths {iw} and {ow}, the kernel takes "
+                         f"{MAX_THREADS}")
+    floats = _smem_floats(rows, ow, ih, iw, canvas)
+    build.check_smem(name, floats)
+    sizes = [ih * iw, rows * ih, oh * ih, ow * iw]
+    if canvas:
+        sizes += [rows * ow, oh * ow]
+    return Geometry(groups, rows, threads, 4 * floats,
+                    all(n % 4 == 0 for n in sizes))
+
+
+def bulk_ok(geo: Geometry, *tensors: torch.Tensor) -> int:
+    """1 when the launch takes the bulk-copy path: sizes and pointers on
+    16 bytes."""
+    return int(geo.bulk and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("st_pallas").lib
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-    lib.st_fused_dots.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    lib.st_fused_dots.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                                   + [ctypes.c_void_p])
     lib.st_fused_dots.restype = ctypes.c_int
     return lib
@@ -66,11 +151,12 @@ def fused_dots(wy: torch.Tensor, images: torch.Tensor, wx: torch.Tensor,
     build.check("Wx", wx, (b, ow, iw), dev)
     if dev.type == "cpu":
         return fused_dots_plain(wy, images, wx)
-    build.check_smem(name, ih * iw + oh * ih + ow * iw + oh * iw)
+    geo = geometry(b, oh, ow, ih, iw, name=name)
     wy, images, wx = build.contiguous(wy, images, wx)
     out = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
     build.launch(_lib().st_fused_dots, dev, wy, images, wx, out, b, oh, ow,
-                 ih, iw)
+                 ih, iw, geo.groups, geo.rows, geo.threads, geo.smem_bytes,
+                 bulk_ok(geo, wy, images, wx))
     LAUNCHES[name] += 1
     return out
 

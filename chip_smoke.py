@@ -44,7 +44,10 @@ line with the card's name and power limit as nvidia-smi reports them:
   6. times    device time per launch of each kernel, its plain version and a
               PyTorch yardstick at B = 64 (CUDA graphs of back-to-back
               launches, timed with CUDA events), the bound from the published
-              H100 SXM peaks; the infer latency for 1 and 64 canvases; the
+              H100 SXM peaks; the streamed-weight kernels (the resample in
+              both directions, the write-accumulate forward) again at B = 64,
+              256 and 1024 beside their yardsticks; the infer latency for 1
+              and 64 canvases; the
               train step (median of 10, host clock, each ending in a
               synchronize) through each path's kernels and through the plain
               path.
@@ -95,6 +98,7 @@ PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
 GRAD_TOL = 1e-4         # train step 0, kernels vs plain path
 MIN_ACCURACY = 0.9      # the bar of the JAX package's shipped-model test
 BATCH = 64              # the serving bucket of the 60-canvas request
+SWEEP_BATCHES = (BATCH, 256, 1024)   # phase 6's streamed-weight kernels
 CS, WS = 50, 28
 # steps of the main path's training run: the JAX package at this config on
 # the same 64 canvases lowers the mean reconstruction loss of the last 5
@@ -632,15 +636,39 @@ def main() -> None:
         say("times", card_line, f"{kname} B={BATCH}: ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
             f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} B, {flops} FLOP)")
-    # the streamed-weight resample's other direction (exported, not on the
-    # model's path): window -> canvas
-    fn, plain_fn, _ = KERNELS["pallas_attention_write"]
-    b_ms, b_by = bound_ms(f32 * BATCH * (WS * WS + 2 * CS * WS + CS * CS),
-                          write_flops - 2 * BATCH * CS * CS)
-    say("times", card_line, f"pallas_attention_write B={BATCH}: "
-        f"ms={device_ms(lambda: fn(d, e_in)):.5f} "
-        f"plain_ms={device_ms(lambda: plain_fn(d, e_in)):.5f} "
-        f"bound_ms={b_ms:.6f} ({b_by})")
+    # the streamed-weight kernels (resample in both directions, the
+    # write-accumulate forward) at B = 64, 256 and 1024, each beside its
+    # library chain with the weights prebuilt and its bound
+    for b in SWEEP_BATCHES:
+        db = kernel_inputs(b, seed=2000 + b)
+        eb = core_inputs(db, seed=3000 + b)
+        (wy_r, wx_r), (wy_w, wx_w) = eb["w_read"], eb["w_write"]
+        co_wy_w = wy_w * db["coeff"][:, None, None]
+        wx_r_t, wx_w_t = wx_r.transpose(1, 2), wx_w.transpose(1, 2)
+        sweep = (
+            ("pallas_attention_read",
+             lambda: torch.bmm(torch.bmm(wy_r, db["img"]), wx_r_t),
+             f32 * b * (CS * CS + 2 * WS * CS + WS * WS),
+             2 * b * (WS * CS * CS + WS * WS * CS)),
+            ("pallas_attention_write",
+             lambda: torch.bmm(torch.bmm(wy_w, db["win"]), wx_w_t),
+             f32 * b * (WS * WS + 2 * CS * WS + CS * CS),
+             2 * b * (CS * WS * WS + CS * CS * WS)),
+            ("fused_write_accumulate",
+             lambda: torch.baddbmm(canvas3(db), torch.bmm(co_wy_w, db["win"]),
+                                   wx_w_t),
+             f32 * b * (2 * CS * WS + WS * WS + 1 + 2 * CS * CS),
+             2 * b * (CS * WS * WS + CS * CS * WS + CS * CS)))
+        for kname, lib_fn, nbytes, flops in sweep:
+            fn, plain_fn, _ = KERNELS[kname]
+            ms = device_ms(lambda: fn(db, eb))
+            library_ms = device_ms(lib_fn)
+            plain_ms = device_ms(lambda: plain_fn(db, eb))
+            b_ms, b_by = bound_ms(nbytes, flops)
+            say("times", card_line, f"{kname} B={b}: ms={ms:.5f} "
+                f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+                f"ms/library={ms / library_ms:.3f} bound_ms={b_ms:.6f} "
+                f"({b_by}; {nbytes} B, {flops} FLOP)")
 
     for impl, wrapper in wrappers.items():
         lat = {}

@@ -41,7 +41,7 @@ missing = set(PORT_MODULES) - walked
 assert not missing, missing
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 for script in ("profile_torch_serve.py", "profile_torch_train.py",
-               "determinism_torch_train.py"):
+               "determinism_torch_train.py", "sweep_st_geometry.py"):
     runpy.run_path("scripts/" + script, run_name="profile")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "air_tpu")
           and sys.modules[m] is not None]

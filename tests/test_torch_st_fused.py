@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from air_tpu_torch.kernels import st_fused
+from air_tpu_torch.kernels import st_fused, st_pallas
 from air_tpu_torch.ops import transformer as ttr
 
 try:    # the machine with the card has no JAX; only the gpu test runs there
@@ -46,6 +46,12 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 SHAPES = [(20, 8), (50, 28)]
 BATCHES = [1, 7, 12, 64]
 NAMES = ("canvas", "windows", "s", "x", "y", "coeff")
+# the forward's launch geometry: the tests' and the model's shapes, cs 100,
+# and an odd shape whose ranges are not 16-byte multiples (4-byte copies)
+GEOMETRY_SHAPES = [(20, 8), (50, 28), (100, 28), (21, 7)]
+GEOMETRY_BATCHES = [1, 7, 64, 1024]
+CARD_SHAPES = SHAPES + [(100, 28), (21, 7)]
+CARD_BATCHES = [1, 7, 64, 256]
 
 
 @pytest.fixture
@@ -204,14 +210,43 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(bad):
         st_fused.fused_write_accumulate(*(d[k] for k in NAMES), 20)
 
 
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("b", GEOMETRY_BATCHES)
+def test_forward_launch_geometry(b, cs, ws):
+    """The forward kernel's geometry: row groups cover every canvas row
+    once, each block's thread tiles cover its outputs once, a block (with its
+    canvas rows) fits the card's shared memory, a batch of 64 gives every SM
+    a block and one canvas more than one block; the bulk path at every shape
+    but the odd one."""
+    from tests.test_torch_st_pallas import check_geometry
+    geo = st_fused.geometry(b, cs, ws)
+    check_geometry(geo, b, cs, cs, ws, ws, canvas=True)
+    assert geo.bulk == ((cs, ws) != (21, 7))
+    assert geo == st_pallas.geometry(b, cs, cs, ws, ws, canvas=True)
+
+
+def test_forward_refuses_a_block_that_does_not_fit():
+    """Off the CPU the forward computes its geometry before it builds or
+    launches anything: a 2000-wide canvas of 2-wide windows needs more than
+    MAX_THREADS threads per block."""
+    b, cs, ws, dev = 1, 2000, 2, "meta"
+    w = torch.empty((b, cs, ws), device=dev)
+    with pytest.raises(ValueError, match="threads"):
+        st_fused.wmac_fwd(torch.empty((b, cs, cs), device=dev),
+                          torch.empty((b, ws, ws), device=dev), w, w,
+                          torch.empty((b,), device=dev))
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_the_card():
     """Build the CUDA kernels, launch each on the card and hold it against
-    its plain version; every launch is counted."""
+    its plain version, at the tests' and the model's shapes, cs 100 and the
+    odd shape (21, 7) that takes the forward's 4-byte copy path; every launch
+    is counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
-    for b in (1, 7, 64):
-        for cs, ws in SHAPES + [(100, 28)]:
+    for b in CARD_BATCHES:
+        for cs, ws in CARD_SHAPES:
             d = _torch(_inputs(b, cs, ws, seed=50 + b), "cuda")
             wy, wx = _weights(d, cs, ws)
             canvas = d["canvas"].reshape(b, cs, cs)

@@ -29,11 +29,13 @@ result, and an element that cancels carries the batch's absolute rounding
 (measured: d_y 0.78257 against JAX's 0.78248 in a batch whose largest is
 582), as tests/test_torch_st_inline.py holds the same cotangents."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from air_tpu_torch.kernels import st_pallas
+from air_tpu_torch.kernels import build, st_pallas
 from air_tpu_torch.ops import transformer as ttr
 
 try:    # the machine with the card has no JAX; only the gpu test runs there
@@ -50,6 +52,13 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 SCALARS = ("s", "x", "y")
 SHAPES = [(20, 8), (50, 28)]
 BATCHES = [1, 3, 7]
+# the launch geometry: the tests' and the model's shapes, cs 100, and an odd
+# shape whose ranges are not 16-byte multiples (the 4-byte copy path)
+GEOMETRY_SHAPES = [(20, 8), (50, 28), (100, 28), (21, 7)]
+GEOMETRY_BATCHES = [1, 7, 64, 1024]
+# the card-only test: every shape above, both directions
+CARD_SHAPES = SHAPES + [(100, 28), (21, 7)]
+CARD_BATCHES = [1, 7, 64, 256]
 
 
 @pytest.fixture
@@ -206,14 +215,94 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(bad):
                                          d["y"], 20)
 
 
+def _row_ranges(geo, oh):
+    """The output rows of each group, in order."""
+    return [range(g * geo.rows, min(oh, (g + 1) * geo.rows))
+            for g in range(geo.groups)]
+
+
+def _tile_outputs(geo, oh, width):
+    """The (row, column) outputs of each thread's register tile in one block
+    of ``rg`` rows, as st_resample.cuh's Tile maps threads: rows p and
+    p + half, columns q + c * ceil(width / TILE_COLS)."""
+    qn = -(-width // st_pallas.TILE_COLS)
+    half = geo.rows // 2
+    for rows in _row_ranges(geo, oh):
+        rg, seen = len(rows), []
+        for t in range(geo.threads):
+            p, q = divmod(t, qn)
+            if p >= half:
+                continue
+            seen += [(i, q + c * qn) for i in (p, p + half) if i < rg
+                     for c in range(st_pallas.TILE_COLS)
+                     if q + c * qn < width]
+        yield rg, seen
+
+
+def check_geometry(geo, b, oh, ow, ih, iw, canvas):
+    """What a launch geometry promises, for out [B, oh, ow] = Wy [B, oh, ih]
+    @ X [B, ih, iw] @ Wx [B, ow, iw]^T."""
+    ranges = _row_ranges(geo, oh)
+    assert [i for r in ranges for i in r] == list(range(oh))
+    assert all(len(r) > 0 for r in ranges) and geo.rows % 2 == 0
+    half = geo.rows // 2
+    # each block's tiles cover its rows of tmp [rg, iw] and of out
+    # [rg, ow] once each
+    for width in (iw, ow):
+        for rg, seen in _tile_outputs(geo, oh, width):
+            assert sorted(seen) == [(i, l) for i in range(rg)
+                                    for l in range(width)]
+    assert geo.threads % 32 == 0 and geo.threads <= st_pallas.MAX_THREADS
+    # a warp's rows of Wy (stride ih) fall in distinct banks
+    assert half <= 32 // math.gcd(ih, 32) or half == 1
+    assert geo.smem_bytes == 4 * st_pallas._smem_floats(geo.rows, ow, ih, iw,
+                                                        canvas)
+    assert geo.smem_bytes <= build.MAX_SMEM_BYTES
+    sizes = [ih * iw, geo.rows * ih, oh * ih, ow * iw]
+    sizes += [geo.rows * ow, oh * ow] if canvas else []
+    assert geo.bulk == all(n % 4 == 0 for n in sizes)
+    blocks = b * geo.groups
+    assert blocks > 1 and (b < 64 or blocks >= st_pallas.SMS)
+
+
+@pytest.mark.parametrize("direction", ["read", "write"])
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("b", GEOMETRY_BATCHES)
+def test_launch_geometry(b, cs, ws, direction):
+    """Row groups cover every output row once, each block's thread tiles
+    cover its outputs once, a block fits the card's shared memory, a batch
+    of 64 gives every SM a block and one image more than one block."""
+    oh, ih = (ws, cs) if direction == "read" else (cs, ws)
+    geo = st_pallas.geometry(b, oh, oh, ih, ih)
+    check_geometry(geo, b, oh, oh, ih, ih, canvas=False)
+    assert geo.bulk == ((cs, ws) != (21, 7))
+
+
+@pytest.mark.parametrize("what", ["shared memory", "threads"])
+def test_wrapper_refuses_a_block_that_does_not_fit(what):
+    """Off the CPU the wrapper computes the geometry before it builds or
+    launches anything, and refuses what one block cannot hold: a 300 x 300
+    canvas (360 KB of shared memory), or a 2000-wide output of a 2-wide
+    window (more than MAX_THREADS threads)."""
+    (oh, ih), dev = ((8, 300) if what == "shared memory" else (2000, 2)), "meta"
+    wy = torch.empty((1, oh, ih), device=dev)
+    images = torch.empty((1, ih, ih), device=dev)
+    with pytest.raises(ValueError, match=what):
+        st_pallas.fused_dots(wy, images, wy, "pallas_attention_read")
+    with pytest.raises(ValueError, match=what):
+        st_pallas.geometry(1, oh, oh, ih, ih)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_the_card():
     """Build the CUDA kernel, launch it on the card in both directions and
-    hold it against its plain version; every launch is counted."""
+    hold it against its plain version, at the tests' and the model's shapes,
+    cs 100 and the odd shape (21, 7) that takes the 4-byte copy path; every
+    launch is counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
-    for b in (1, 7, 64):
-        for cs, ws in SHAPES:
+    for b in CARD_BATCHES:
+        for cs, ws in CARD_SHAPES:
             d = _torch(_inputs(b, cs, ws, seed=40 + b), "cuda")
             inv_s = 1.0 / d["s"]
             cases = (
@@ -228,12 +317,19 @@ def test_kernel_matches_plain_on_the_card():
                 got = st_pallas.fused_dots(wy, images, wx, name)
                 torch.cuda.synchronize()
                 want = st_pallas.fused_dots_plain(wy, images, wx)
-                torch.testing.assert_close(got, want, **TOL)
+                torch.testing.assert_close(got, want, **TOL,
+                                           msg=f"{name} B={b} cs={cs}")
             got = st_pallas.pallas_attention_read(d["images"], d["s"],
                                                   d["x"], d["y"], ws)
             torch.cuda.synchronize()
             torch.testing.assert_close(
                 got, ttr.attention_read(d["images"], d["s"], d["x"], d["y"],
                                         ws), **TOL)
+            got = st_pallas.pallas_attention_write(d["windows"], d["s"],
+                                                   d["x"], d["y"], cs)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got, ttr.attention_write(d["windows"], d["s"], d["x"],
+                                         d["y"], cs), **TOL)
             assert st_pallas.LAUNCHES == {"pallas_attention_read": 2,
-                                          "pallas_attention_write": 1}
+                                          "pallas_attention_write": 2}
