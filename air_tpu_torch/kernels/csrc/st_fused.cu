@@ -37,16 +37,33 @@
 // fmaf chain in ascending order, then canvas + coeff * acc rounded as
 // __fadd_rn(canvas, __fmul_rn(coeff, acc)); no atomics.
 //
-// The backward, right and simple first: one block per image. The block
-// stages its operands in shared memory (about 35.5 KB at these shapes: g,
-// win, both weights and the two shared intermediates gwx and tmp), so no
-// intermediate touches device memory. Every product is an fp32 FMA in a
-// fixed order. d_coeff is each thread's partial sum of gwx * tmp, reduced in
-// the block in a fixed order (no atomics), so a run gives the same bits
-// every time. The forward reads `canvas` and writes `out`; the wrapper passes
-// a fresh `out` (the TPU kernel aliases them). Sizes whose operands do not
-// fit the 227 KB of shared memory a block can have are refused by the
-// launcher's attribute call and by the wrapper.
+// The backward (st_cluster.cuh) gives each image a cluster of 2 CTAs up to
+// B = 66 (128 CTAs for 132 SMs at B = 64) and 1 from B = 67 on
+// (kernels/cluster.py:geometry; the kernel takes up to 8, which measured
+// slower, PERF.md). Every CTA stages g, win, Wy and Wx whole with 1-D bulk
+// copies on one mbarrier (4-byte cp.async where a range is not 16-byte sized
+// and aligned): 24 KB at the model's shapes, read again from L2 by the
+// cluster's other CTA. CTA r forms its group of rows of gwx = g @ Wx beside
+// those of tmp = Wy @ win (disjoint warps of the block, 2 x 4 register
+// tiles); after a cluster barrier it copies the other groups' rows out of
+// their CTAs' shared memory, so that gwx and tmp are whole in each CTA, and
+// arrives at the last barrier. Then, side by side, it writes its rows of
+// d_Wy (its rows of gwx against win^T, transposed in shared memory to an
+// odd stride so that a warp's loads fall in distinct banks; win itself, at
+// stride 28, would conflict 4 ways), its rows of d_Wx (columns of g
+// against tmp) and its group of rows of d_win (columns of Wy against gwx),
+// each output one fmaf chain in ascending order, times coeff as
+// __fmul_rn(co, acc). The cluster's last CTA forms d_coeff = <gwx, tmp> in
+// the order of a 256-thread block: lane t's chain over idx = t, t + 256,
+// ..., the xor-shuffle tree in each warp, the 8 warps in order, whatever
+// the geometry. So every launch gives the same bits (no atomics). The
+// compile-time sizes of the model's shapes (cs 50, ws 28) let the loops
+// unroll; other sizes take them at run time. At the model's shapes a CTA
+// needs 39.8 KB of shared memory; sizes that do not fit 227 KB are refused
+// by the wrapper and the launcher.
+//
+// The forward reads `canvas` and writes `out`; the wrapper passes a fresh
+// `out` (the TPU kernel aliases them).
 //
 // No tensor cores: both kernels are held to fp32 at 1e-5, Hopper's tensor
 // cores take fp32 only as TF32 (10-bit mantissa), which the port's numeric
@@ -55,31 +72,10 @@
 
 #include <cuda_runtime.h>
 
+#include "st_cluster.cuh"
 #include "st_resample.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      float* dst, int n) {
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) dst[idx] = src[idx];
-}
-
-// Sum of v over the block's threads in a fixed order: warp shuffles, then
-// the warps' sums in shared memory (red_s holds kThreads / 32 floats).
-// Thread 0 gets the total.
-__device__ float block_sum(float v, float* red_s) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red_s[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < kThreads / 32; ++w) total = __fadd_rn(total, red_s[w]);
-  return total;
-}
 
 // kCs, kWs: the sizes fixed at compile time, or 0 to take them from the
 // arguments (st_resample.cuh, Sizes).
@@ -169,63 +165,138 @@ st_wmac_fwd_kernel(const float* __restrict__ wy, const float* __restrict__ win,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One backward CTA's shared memory, offsets in floats, every region on 16
+// bytes. Mirrored by kernels/st_fused.py:_bwd_smem_floats.
+struct BwdLayout {
+  int g, win, wy, wx, wint, gwx, tmp, lanes, red, total;
+  __host__ __device__ BwdLayout(int cs, int ws)
+      : g(0),
+        win(g + st_cluster::round4(cs * cs)),              // g      [cs, cs]
+        wy(win + st_cluster::round4(ws * ws)),             // win    [ws, ws]
+        wx(wy + st_cluster::round4(cs * ws)),              // Wy     [cs, ws]
+        wint(wx + st_cluster::round4(cs * ws)),            // Wx     [cs, ws]
+        gwx(wint + st_cluster::round4(ws * st_cluster::odd(ws))),  // win^T
+        tmp(gwx + st_cluster::round4(cs * ws)),            // gwx    [cs, ws]
+        lanes(tmp + st_cluster::round4(cs * ws)),          // tmp    [cs, ws]
+        red(lanes + st_cluster::kLanes),                   // d_coeff's lanes
+        total(red + st_cluster::kLanes / 32) {}            // its warps' sums
+};
+
+// kCs, kWs as for the forward. One cluster of `cluster` CTAs per image; CTA
+// `rank` owns rows [rank * rows, ...) of gwx, tmp, d_Wy and d_Wx and rows
+// [rank * out_rows, ...) of d_win.
+template <int kCs, int kWs>
+__global__ void __launch_bounds__(st_cluster::kMaxThreads)
 st_wmac_bwd_kernel(const float* __restrict__ wy, const float* __restrict__ win,
                    const float* __restrict__ wx,
                    const float* __restrict__ coeff,
                    const float* __restrict__ g, float* __restrict__ d_wy,
                    float* __restrict__ d_win, float* __restrict__ d_wx,
-                   float* __restrict__ d_coeff, int cs, int ws) {
-  extern __shared__ float smem[];
-  float* g_s = smem;               // [cs, cs]
-  float* win_s = g_s + cs * cs;    // [ws, ws]
-  float* wy_s = win_s + ws * ws;   // [cs, ws]
-  float* wx_s = wy_s + cs * ws;    // [cs, ws]
-  float* gwx_s = wx_s + cs * ws;   // [cs, ws] = g @ Wx
-  float* tmp_s = gwx_s + cs * ws;  // [cs, ws] = Wy @ win
-  float* red_s = tmp_s + cs * ws;  // [kThreads / 32]
-  const size_t b = blockIdx.x;
-  stage(g + b * cs * cs, g_s, cs * cs);
-  stage(win + b * ws * ws, win_s, ws * ws);
-  stage(wy + b * cs * ws, wy_s, cs * ws);
-  stage(wx + b * cs * ws, wx_s, cs * ws);
+                   float* __restrict__ d_coeff, int cs_arg, int ws_arg,
+                   int cluster, int rows, int out_rows, int bulk) {
+  using namespace st_cluster;
+  const int cs = kCs ? kCs : cs_arg, ws = kWs ? kWs : ws_arg;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int b = blockIdx.x / cluster;
+  const BwdLayout lay(cs, ws);
+  float* g_s = smem + lay.g;
+  float* win_s = smem + lay.win;
+  float* wy_s = smem + lay.wy;
+  float* wx_s = smem + lay.wx;
+  float* wint_s = smem + lay.wint;
+  float* gwx_s = smem + lay.gwx;
+  float* tmp_s = smem + lay.tmp;
+  const size_t mat = static_cast<size_t>(b) * cs * ws;
+  const float* g_b = g + static_cast<size_t>(b) * cs * cs;
+  const float* win_b = win + static_cast<size_t>(b) * ws * ws;
+
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      st_resample::mbar_init(&bar);
+      st_resample::mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const uint32_t n_g = 4u * cs * cs, n_win = 4u * ws * ws,
+                     n_w = 4u * cs * ws;
+      st_resample::mbar_expect_tx(&bar, n_g + n_win + 2 * n_w);
+      st_resample::bulk_copy(g_s, g_b, n_g, &bar);
+      st_resample::bulk_copy(win_s, win_b, n_win, &bar);
+      st_resample::bulk_copy(wy_s, wy + mat, n_w, &bar);
+      st_resample::bulk_copy(wx_s, wx + mat, n_w, &bar);
+    }
+    st_resample::mbar_wait(&bar, 0);
+  } else {
+    st_resample::copy4(g_s, g_b, cs * cs);
+    st_resample::copy4(win_s, win_b, ws * ws);
+    st_resample::copy4(wy_s, wy + mat, cs * ws);
+    st_resample::copy4(wx_s, wx + mat, cs * ws);
+    st_resample::copy4_commit();
+    st_resample::copy4_wait<0>();
+    __syncthreads();
+  }
   const float co = coeff[b];
+  st_resample::transpose_wx(win_s, wint_s, ws, ws);   // win^T [ws, odd(ws)]
+
+  // this CTA's rows of gwx = g @ Wx and tmp = Wy @ win, side by side
+  const Group own(rank, rows, cs);
+  const int half = rows / 2, tiles = half * cdiv(ws, kTileCols);
+  const Split first(blockDim.x, tiles, tiles);
+  tile_product(g_s + own.first * cs, cs, 1, wx_s, ws, own.count, half, ws, cs,
+               first.t0[0], first.nt[0], [&](int i, int k, float v) {
+                 gwx_s[(own.first + i) * ws + k] = v;
+               });
+  tile_product(wy_s + own.first * ws, ws, 1, win_s, ws, own.count, half, ws,
+               ws, first.t0[1], first.nt[1], [&](int i, int k, float v) {
+                 tmp_s[(own.first + i) * ws + k] = v;
+               });
+  cluster_sync();
+  gather_rows(gwx_s, ws, rows, cs, cluster, rank);
+  gather_rows(tmp_s, ws, rows, cs, cluster, rank);
+  cluster_arrive();   // done with the other CTAs' shared memory
   __syncthreads();
 
-  // gwx, tmp, and each thread's share of d_coeff = <gwx, tmp>
-  float dco = 0.0f;
-  for (int idx = threadIdx.x; idx < cs * ws; idx += blockDim.x) {
-    const int i = idx / ws, k = idx - i * ws;
-    float acc = 0.0f;
-    for (int l = 0; l < cs; ++l) acc = fmaf(g_s[i * cs + l], wx_s[l * ws + k], acc);
-    gwx_s[idx] = acc;
-    float t = 0.0f;
-    for (int j = 0; j < ws; ++j) t = fmaf(wy_s[i * ws + j], win_s[j * ws + k], t);
-    tmp_s[idx] = t;
-    dco = fmaf(acc, t, dco);
+  // the three weight cotangents, side by side
+  const Group out(rank, out_rows, ws);
+  const Split second(blockDim.x, tiles, tiles,
+                     out_rows / 2 * cdiv(ws, kTileCols));
+  // d_Wy[i][j] = co * sum_k gwx[i][k] win[j][k], this CTA's rows i
+  float* d_wy_b = d_wy + mat;
+  tile_product(gwx_s + own.first * ws, ws, 1, wint_s, odd(ws), own.count,
+               half, ws, ws, second.t0[0], second.nt[0],
+               [&](int i, int j, float v) {
+                 d_wy_b[(own.first + i) * ws + j] = __fmul_rn(co, v);
+               });
+  // d_Wx[l][k] = co * sum_m g[m][l] tmp[m][k], this CTA's rows l
+  float* d_wx_b = d_wx + mat;
+  tile_product(g_s + own.first, 1, cs, tmp_s, ws, own.count, half, ws, cs,
+               second.t0[1], second.nt[1], [&](int l, int k, float v) {
+                 d_wx_b[(own.first + l) * ws + k] = __fmul_rn(co, v);
+               });
+  // d_win[j][k] = co * sum_i Wy[i][j] gwx[i][k], this CTA's rows j
+  float* d_win_b = d_win + static_cast<size_t>(b) * ws * ws;
+  tile_product(wy_s + out.first, 1, ws, gwx_s, ws, out.count, out_rows / 2,
+               ws, cs, second.t0[2], second.nt[2],
+               [&](int j, int k, float v) {
+                 d_win_b[(out.first + j) * ws + k] = __fmul_rn(co, v);
+               });
+  // d_coeff = <gwx, tmp>, in the order of a 256-thread block
+  if (rank == cluster - 1) {
+    float total[1];
+    lane_tree_sums<1>(
+        [&](int lane, float (&x)[1]) {
+          float dco = 0.0f;
+          for (int idx = lane; idx < cs * ws; idx += kLanes) {
+            dco = fmaf(gwx_s[idx], tmp_s[idx], dco);
+          }
+          x[0] = dco;
+        },
+        smem + lay.lanes, smem + lay.red, total);
+    if (threadIdx.x == 0) d_coeff[b] = total[0];
   }
-  __syncthreads();
-
-  const size_t mat = b * cs * ws;
-  for (int idx = threadIdx.x; idx < cs * ws; idx += blockDim.x) {
-    const int i = idx / ws, j = idx - i * ws;   // row i, column j of d_Wy
-    float acc = 0.0f;
-    for (int k = 0; k < ws; ++k) acc = fmaf(gwx_s[i * ws + k], win_s[j * ws + k], acc);
-    d_wy[mat + idx] = __fmul_rn(co, acc);
-    // row l = i, column k = j of d_Wx
-    acc = 0.0f;
-    for (int m = 0; m < cs; ++m) acc = fmaf(g_s[m * cs + i], tmp_s[m * ws + j], acc);
-    d_wx[mat + idx] = __fmul_rn(co, acc);
-  }
-  float* d_win_b = d_win + b * ws * ws;
-  for (int idx = threadIdx.x; idx < ws * ws; idx += blockDim.x) {
-    const int j = idx / ws, k = idx - j * ws;
-    float acc = 0.0f;
-    for (int i = 0; i < cs; ++i) acc = fmaf(wy_s[i * ws + j], gwx_s[i * ws + k], acc);
-    d_win_b[idx] = __fmul_rn(co, acc);
-  }
-  dco = block_sum(dco, red_s);
-  if (threadIdx.x == 0) d_coeff[b] = dco;
+  cluster_wait();
 }
 
 // Dynamic shared memory above 48 KB has to be allowed per kernel.
@@ -239,13 +310,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
-// Each launcher takes device pointers, the batch and the two sizes (the
-// forward also the launch geometry the wrapper computed,
-// kernels/st_fused.py:geometry: row groups per canvas, rows per group,
-// threads, shared-memory bytes per block, and 1 for the bulk-copy path), and
-// the stream; it enqueues one kernel and returns cudaGetLastError() (0 = the
-// launch was accepted), the error of the shared-memory attribute call, or
-// cudaErrorInvalidValue for a geometry the forward cannot run. The wrapper
+// Each launcher takes device pointers, the batch, the two sizes, the launch
+// geometry the wrapper computed and the stream: for the forward
+// (kernels/st_fused.py:geometry) row groups per canvas, rows per group,
+// threads, shared-memory bytes per block and 1 for the bulk-copy path; for
+// the backward (kernels/st_fused.py:bwd_geometry) CTAs per cluster, rows of
+// gwx / tmp / d_Wy / d_Wx per CTA, rows of d_win per CTA, threads,
+// shared-memory bytes per CTA and 1 for the bulk-copy path. It enqueues one
+// kernel and returns cudaGetLastError() (0 = the launch was accepted), the
+// error of the shared-memory attribute call or of the cluster launch, or
+// cudaErrorInvalidValue for a geometry the kernel cannot run. The wrapper
 // checks shapes, types, contiguity and, for the bulk path, alignment.
 
 extern "C" int st_wmac_fwd(const float* wy, const float* win, const float* wx,
@@ -269,13 +343,16 @@ extern "C" int st_wmac_fwd(const float* wy, const float* win, const float* wx,
 extern "C" int st_wmac_bwd(const float* wy, const float* win, const float* wx,
                            const float* coeff, const float* g, float* d_wy,
                            float* d_win, float* d_wx, float* d_coeff,
-                           int batch, int cs, int ws, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(cs * cs + ws * ws + 4 * cs * ws +
-                                          kThreads / 32) *
-                      sizeof(float);
-  const cudaError_t err = allow_smem(st_wmac_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  st_wmac_bwd_kernel<<<batch, kThreads, smem, stream>>>(
-      wy, win, wx, coeff, g, d_wy, d_win, d_wx, d_coeff, cs, ws);
-  return static_cast<int>(cudaGetLastError());
+                           int batch, int cs, int ws, int cluster, int rows,
+                           int out_rows, int threads, int smem_bytes, int bulk,
+                           cudaStream_t stream) {
+  if (!st_cluster::geometry_ok(cs, ws, cluster, rows, out_rows, threads,
+                               smem_bytes, BwdLayout(cs, ws).total)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = cs == 50 && ws == 28 ? st_wmac_bwd_kernel<50, 28>
+                                           : st_wmac_bwd_kernel<0, 0>;
+  return static_cast<int>(st_cluster::launch_clusters(
+      kernel, batch, cluster, threads, smem_bytes, stream, wy, win, wx, coeff,
+      g, d_wy, d_win, d_wx, d_coeff, cs, ws, cluster, rows, out_rows, bulk));
 }

@@ -20,6 +20,11 @@ it computes the plain versions ``wmac_fwd_plain`` and ``wmac_bwd_plain``
 (the backward as explicit products, not autograd through the plain
 forward). Each launch adds one to ``LAUNCHES["fused_write_accumulate"]`` or
 ``LAUNCHES["fused_write_accumulate_bwd"]``, and nothing else does.
+
+``geometry`` (the forward's row split, ``st_pallas.geometry``) and
+``bwd_geometry`` (the backward's clusters, ``cluster.geometry``) compute how
+a launch splits its work; the launchers check what they are given, and the
+CPU tests reach both here.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import functools
 
 import torch
 
-from air_tpu_torch.kernels import build, st_pallas
+from air_tpu_torch.kernels import build, cluster, st_pallas
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
 
 LAUNCHES = {"fused_write_accumulate": 0, "fused_write_accumulate_bwd": 0}
@@ -45,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("st_fused").lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-    for fn, n_ptr, n_int in ((lib.st_wmac_fwd, 6, 8), (lib.st_wmac_bwd, 9, 3)):
+    for fn, n_ptr, n_int in ((lib.st_wmac_fwd, 6, 8), (lib.st_wmac_bwd, 9, 9)):
         fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
     return lib
@@ -57,6 +62,33 @@ def geometry(b: int, cs: int, ws: int) -> st_pallas.Geometry:
     with ``canvas``)."""
     return st_pallas.geometry(b, cs, cs, ws, ws, canvas=True,
                               name="fused_write_accumulate")
+
+
+def _bwd_smem_floats(cs: int, ws: int) -> int:
+    """Floats of one backward CTA's shared memory, as st_fused.cu's
+    BwdLayout: g, win, Wy, Wx, win^T at an odd row stride, gwx, tmp, and
+    d_coeff's lanes and warp sums; each region on 16 bytes."""
+    r4 = cluster.round4
+    return (r4(cs * cs) + r4(ws * ws) + 4 * r4(cs * ws) + r4(ws * (ws | 1))
+            + cluster.LANES + cluster.LANES // 32)
+
+
+def bwd_geometry(b: int, cs: int, ws: int) -> cluster.ClusterGeometry:
+    """Launch geometry of the backward kernel (``cluster.geometry``): the
+    clusters split the cs rows of gwx and tmp (and of d_Wy and d_Wx), and
+    the ws rows of d_win."""
+    return cluster.geometry(
+        b, cs, ws, functools.partial(_bwd_phases, ws=ws),
+        lambda rows: _bwd_smem_floats(cs, ws), (cs * cs, ws * ws, cs * ws),
+        "fused_write_accumulate_bwd")
+
+
+def _bwd_phases(rows: int, out_rows: int, ws: int) -> list:
+    """The backward's products side by side, as register tiles: gwx and tmp
+    (``rows`` rows each), then d_Wy, d_Wx (``rows``) and d_win
+    (``out_rows``), all ws wide."""
+    t, t_out = cluster.tiles(rows, ws), cluster.tiles(out_rows, ws)
+    return [(t, t), (t, t, t_out)]
 
 
 def _check_operands(windows, wy, wx, coeff, cs_cs: torch.Tensor) -> tuple:
@@ -121,14 +153,16 @@ def wmac_bwd(windows, wy, wx, coeff, g):
     b, cs, ws = _check_operands(windows, wy, wx, coeff, g)
     if g.device.type == "cpu":
         return wmac_bwd_plain(windows, wy, wx, coeff, g)
-    build.check_smem("fused_write_accumulate_bwd",
-                     cs * cs + ws * ws + 4 * cs * ws + 8)
+    geo = bwd_geometry(b, cs, ws)
     wy, windows, wx, coeff, g = build.contiguous(wy, windows, wx, coeff, g)
     d_wy, d_wx = torch.empty_like(wy), torch.empty_like(wx)
     d_win = torch.empty_like(windows)
     d_coeff = torch.empty_like(coeff)
+    bulk = geo.bulk and all(t.data_ptr() % 16 == 0
+                            for t in (wy, windows, wx, g))
     build.launch(_lib().st_wmac_bwd, g.device, wy, windows, wx, coeff, g,
-                 d_wy, d_win, d_wx, d_coeff, b, cs, ws)
+                 d_wy, d_win, d_wx, d_coeff, b, cs, ws, geo.cluster, geo.rows,
+                 geo.out_rows, geo.threads, geo.smem_bytes, int(bulk))
     LAUNCHES["fused_write_accumulate_bwd"] += 1
     return d_win, d_wy, d_wx, d_coeff
 

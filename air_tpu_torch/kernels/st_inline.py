@@ -22,6 +22,10 @@ other than float32, a shape the kernel does not take or tensors on different
 devices; a strided input (the model passes column views such as
 ``shift[:, 0]``) is copied to a contiguous one before the launch. Each
 kernel launch adds one to ``LAUNCHES[<name>]``, and nothing else does.
+
+The read backward runs a cluster of CTAs per image; ``read_bwd_geometry``
+(``cluster.geometry``) computes its split, the launcher checks it, and the
+CPU tests reach it here.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import functools
 
 import torch
 
-from air_tpu_torch.kernels import build
+from air_tpu_torch.kernels import build, cluster
 from air_tpu_torch.ops.transformer import (_axis_weight_matrix, _linspace,
                                            separable_transform)
 
@@ -49,12 +53,42 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("st_inline").lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-    for fn, n_ptr in ((lib.st_inline_read, 6), (lib.st_inline_write, 8),
-                      (lib.st_inline_read_bwd, 11),
-                      (lib.st_inline_write_bwd, 13)):
-        fn.argtypes = [ptr] * n_ptr + [i32] * 3 + [ptr]
+    for fn, n_ptr, n_int in ((lib.st_inline_read, 6, 3),
+                             (lib.st_inline_write, 8, 3),
+                             (lib.st_inline_read_bwd, 11, 9),
+                             (lib.st_inline_write_bwd, 13, 3)):
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
     return lib
+
+
+def _read_bwd_smem_floats(cs: int, ws: int, rows: int) -> int:
+    """Floats of one read-backward CTA's shared memory, as st_inline.cu's
+    ReadBwdLayout: img, g, the dense Wy and Wx, gwx, tmp, the rows'
+    positions, dW at the CTA's taps, the dp of all rows, and the four
+    scalar reductions' lanes and warp sums; each region on 16 bytes."""
+    r4 = cluster.round4
+    return (r4(cs * cs) + r4(ws * ws) + 4 * r4(ws * cs) + 2 * r4(ws)
+            + 4 * rows + r4(2 * ws) + 4 * cluster.LANES + cluster.LANES // 8)
+
+
+def read_bwd_geometry(b: int, cs: int, ws: int) -> cluster.ClusterGeometry:
+    """Launch geometry of the read backward kernel (``cluster.geometry``):
+    the clusters split the ws rows of gwx and tmp [ws, cs] (and with them
+    the rows whose dp the CTA forms), and the cs rows of d_img [cs, cs]."""
+    return cluster.geometry(
+        b, ws, cs, functools.partial(_read_bwd_phases, cs=cs),
+        lambda rows: _read_bwd_smem_floats(cs, ws, rows),
+        (cs * cs, ws * ws), "inline_attention_read_bwd")
+
+
+def _read_bwd_phases(rows: int, out_rows: int, cs: int) -> list:
+    """The read backward's products: gwx (``rows`` rows of register tiles)
+    on the whole block, then d_img (``out_rows`` rows) beside the 4 * rows
+    dW chains, all cs wide."""
+    return [(cluster.tiles(rows, cs),),
+            (cluster.tiles(out_rows, cs), 4 * rows)]
+
 
 
 # -------------------- plain versions ----------------------------------------
@@ -145,11 +179,14 @@ def attention_read_bwd(images, g, ay, cy, ax, cx):
     build.check("g", g, (b, ws, ws), images.device)
     if images.device.type == "cpu":
         return attention_read_bwd_plain(images, g, ay, cy, ax, cx)
+    geo = read_bwd_geometry(b, cs, ws)
     images, g, ay, cy, ax, cx = build.contiguous(images, g, ay, cy, ax, cx)
     d_img = torch.empty_like(images)
     d_s = torch.empty((4, b), dtype=torch.float32, device=images.device)
+    bulk = geo.bulk and images.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
     build.launch(_lib().st_inline_read_bwd, images.device, images, g, ay,
-                 cy, ax, cx, d_img, *d_s, b, cs, ws)
+                 cy, ax, cx, d_img, *d_s, b, cs, ws, geo.cluster, geo.rows,
+                 geo.out_rows, geo.threads, geo.smem_bytes, int(bulk))
     LAUNCHES["inline_attention_read_bwd"] += 1
     return (d_img, *d_s)
 

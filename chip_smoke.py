@@ -44,13 +44,13 @@ line with the card's name and power limit as nvidia-smi reports them:
   6. times    device time per launch of each kernel, its plain version and a
               PyTorch yardstick at B = 64 (CUDA graphs of back-to-back
               launches, timed with CUDA events), the bound from the published
-              H100 SXM peaks; the streamed-weight kernels (the resample in
-              both directions, the write-accumulate forward) again at B = 64,
-              256 and 1024 beside their yardsticks; the infer latency for 1
-              and 64 canvases; the
-              train step (median of 10, host clock, each ending in a
-              synchronize) through each path's kernels and through the plain
-              path.
+              H100 SXM peaks; the redesigned kernels (the streamed-weight
+              resample in both directions, the write-accumulate forward and
+              backward, the inline read backward) again at B = 64, 256 and
+              1024 beside their yardsticks; the infer latency for 1 and 64
+              canvases; the train step (median of 10, host clock, each
+              ending in a synchronize) through each path's kernels and
+              through the plain path.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -98,7 +98,10 @@ PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
 GRAD_TOL = 1e-4         # train step 0, kernels vs plain path
 MIN_ACCURACY = 0.9      # the bar of the JAX package's shipped-model test
 BATCH = 64              # the serving bucket of the 60-canvas request
-SWEEP_BATCHES = (BATCH, 256, 1024)   # phase 6's streamed-weight kernels
+SWEEP_BATCHES = (BATCH, 256, 1024)   # phase 6's redesigned kernels
+SWEPT = ("pallas_attention_read", "pallas_attention_write",
+         "fused_write_accumulate", "fused_write_accumulate_bwd",
+         "inline_attention_read_bwd")
 CS, WS = 50, 28
 # steps of the main path's training run: the JAX package at this config on
 # the same 64 canvases lowers the mean reconstruction loss of the last 5
@@ -289,6 +292,97 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def costs(b: int) -> dict:
+    """(bytes, FLOP) of each kernel's function at batch b, for its bound:
+    each input read once, each output written once."""
+    f32 = 4
+    # backward of the inline kernels: the products with a weight matrix
+    # dense, as counted for the forward kernels (read: g Wx, Wy^T (g Wx),
+    # Wy img; write: g Wx, Wy^T (g Wx), Wy win), but dWy and dWx only at the
+    # at most two taps per row that the scalar cotangents take, and d_coeff
+    # as <Wy win, g Wx>. Streamed weights: both [B, out, in] weight matrices
+    # read as inputs; the backward's dWy and dWx are outputs, dense, as is
+    # their work (gwx, tmp, dWy, d_win, dWx, and d_coeff as <gwx, tmp>)
+    read = (f32 * b * (CS * CS + 4 + WS * WS),
+            2 * b * (WS * CS * CS + WS * WS * CS))
+    write = (f32 * b * (CS * CS + WS * WS + 5 + CS * CS),
+             2 * b * (CS * WS * WS + CS * CS * WS + CS * CS))
+    dots = (f32 * b * (CS * CS + 2 * WS * CS + WS * WS), read[1])
+    return {
+        "inline_attention_read": read,
+        "inline_write_accumulate": write,
+        "inline_attention_read_bwd": (
+            f32 * b * (2 * CS * CS + WS * WS + 8),
+            2 * b * (WS * WS * CS + 2 * WS * CS * CS + 2 * WS * CS
+                     + 2 * WS * WS)),
+        "inline_write_accumulate_bwd": (
+            f32 * b * (2 * WS * WS + CS * CS + 10),
+            2 * b * (CS * CS * WS + 2 * CS * WS * WS + CS * WS + 2 * CS * WS
+                     + 2 * CS * CS)),
+        "pallas_attention_read": dots,
+        "pallas_attention_write": dots,
+        "fused_write_accumulate": (
+            f32 * b * (2 * CS * WS + WS * WS + 1 + 2 * CS * CS), write[1]),
+        "fused_write_accumulate_bwd": (
+            f32 * b * (2 * CS * WS + WS * WS + 1 + CS * CS + 2 * CS * WS
+                       + WS * WS + 1),
+            2 * b * (2 * CS * CS * WS + 3 * CS * WS * WS + CS * WS)),
+    }
+
+
+class Library:
+    """The PyTorch yardstick of each kernel on one batch of inputs: a batched
+    matmul chain with the weights prebuilt; of a backward,
+    torch.autograd.grad through it with respect to the input and both
+    weights (no scalar contraction, and for the streamed write no d_coeff),
+    timed as forward + grad less the forward."""
+
+    def __init__(self, d: dict, e: dict):
+        (wy_r, wx_r), (wy_w, wx_w) = e["w_read"], e["w_write"]
+        self.d, self.e = d, e
+        self.leaves_r = [t.detach().clone().requires_grad_(True)
+                         for t in (d["img"], wy_r, wx_r.transpose(1, 2))]
+        self.leaves_w = [t.detach().clone().requires_grad_(True)
+                         for t in (d["win"], wy_w * d["coeff"][:, None, None],
+                                   wx_w.transpose(1, 2))]
+        self.plain_write = (wy_w.detach(), wx_w.detach().transpose(1, 2))
+
+    def read_fwd(self):
+        r = self.leaves_r
+        return torch.matmul(torch.matmul(r[1], r[0]), r[2])
+
+    def write_fwd(self):
+        w = self.leaves_w
+        return torch.baddbmm(canvas3(self.d), torch.bmm(w[1], w[0]), w[2])
+
+    def read_bwd(self):
+        return torch.autograd.grad(self.read_fwd(), self.leaves_r,
+                                   self.e["g_read"])
+
+    def write_bwd(self):
+        return torch.autograd.grad(self.write_fwd(), self.leaves_w,
+                                   self.e["g_write"])
+
+    def resample_write(self):
+        wy, wx_t = self.plain_write
+        return torch.bmm(torch.bmm(wy, self.d["win"]), wx_t)
+
+    def ms(self, kname: str) -> float:
+        """Device ms of the yardstick of kernel ``kname``."""
+        fn, less = {
+            "inline_attention_read": (self.read_fwd, None),
+            "inline_write_accumulate": (self.write_fwd, None),
+            "inline_attention_read_bwd": (self.read_bwd, self.read_fwd),
+            "inline_write_accumulate_bwd": (self.write_bwd, self.write_fwd),
+            "pallas_attention_read": (self.read_fwd, None),
+            "pallas_attention_write": (self.resample_write, None),
+            "fused_write_accumulate": (self.write_fwd, None),
+            "fused_write_accumulate_bwd": (self.write_bwd, self.write_fwd),
+        }[kname]
+        t = device_ms(fn)
+        return t - device_ms(less) if less is not None else t
 
 
 def check_serve(impl: str, params, canvases, truth, card_line: str):
@@ -549,82 +643,21 @@ def main() -> None:
     # 6. times at B = 64
     d = kernel_inputs(BATCH, seed=1234)
     e_in = core_inputs(d, seed=4321)
-    wy_r, wx_r = e_in["w_read"]
-    wy_w, wx_w = e_in["w_write"]
-    f32 = 4
-    read_bytes = f32 * BATCH * (CS * CS + 4 + WS * WS)
-    read_flops = 2 * BATCH * (WS * CS * CS + WS * WS * CS)
-    write_bytes = f32 * BATCH * (CS * CS + WS * WS + 5 + CS * CS)
-    write_flops = 2 * BATCH * (CS * WS * WS + CS * CS * WS + CS * CS)
-    # backward: the products with a weight matrix dense, as counted for the
-    # forward kernels (read: g Wx, Wy^T (g Wx), Wy img; write: g Wx,
-    # Wy^T (g Wx), Wy win), but dWy and dWx only at the at most two taps
-    # per row that the scalar cotangents take, and d_coeff as <Wy win, g Wx>
-    read_bwd_bytes = f32 * BATCH * (2 * CS * CS + WS * WS + 8)
-    read_bwd_flops = 2 * BATCH * (WS * WS * CS + 2 * WS * CS * CS
-                                  + 2 * WS * CS + 2 * WS * WS)
-    write_bwd_bytes = f32 * BATCH * (2 * WS * WS + CS * CS + 10)
-    write_bwd_flops = 2 * BATCH * (CS * CS * WS + 2 * CS * WS * WS
-                                   + CS * WS + 2 * CS * WS + 2 * CS * CS)
-    # streamed weights: both [B, out, in] weight matrices read as inputs;
-    # the backward's dWy and dWx are outputs, dense, as is their work (gwx,
-    # tmp, dWy, d_win, dWx, and d_coeff as <gwx, tmp>)
-    dots_bytes = f32 * BATCH * (CS * CS + 2 * WS * CS + WS * WS)
-    dots_flops = read_flops
-    wmac_bytes = f32 * BATCH * (2 * CS * WS + WS * WS + 1 + 2 * CS * CS)
-    wmac_flops = write_flops
-    wmac_bwd_bytes = f32 * BATCH * (2 * CS * WS + WS * WS + 1 + CS * CS
-                                    + 2 * CS * WS + WS * WS + 1)
-    wmac_bwd_flops = 2 * BATCH * (2 * CS * CS * WS + 3 * CS * WS * WS
-                                  + CS * WS)
-    # library yardstick: a batched matmul chain with the weights prebuilt;
-    # of a backward, torch.autograd.grad through it with respect to the
-    # input and both weights (no scalar contraction, and for the streamed
-    # write no d_coeff), timed as forward + grad less the forward
-    leaves_r = [t.detach().clone().requires_grad_(True)
-                for t in (d["img"], wy_r, wx_r.transpose(1, 2))]
-    leaves_w = [t.detach().clone().requires_grad_(True)
-                for t in (d["win"], wy_w * d["coeff"][:, None, None],
-                          wx_w.transpose(1, 2))]
-
-    def lib_read_fwd():
-        return torch.matmul(torch.matmul(leaves_r[1], leaves_r[0]),
-                            leaves_r[2])
-
-    def lib_write_fwd():
-        return torch.baddbmm(canvas3(d), torch.bmm(leaves_w[1], leaves_w[0]),
-                             leaves_w[2])
-
-    def lib_read_bwd():
-        return torch.autograd.grad(lib_read_fwd(), leaves_r, e_in["g_read"])
-
-    def lib_write_bwd():
-        return torch.autograd.grad(lib_write_fwd(), leaves_w,
-                                   e_in["g_write"])
-
+    lib = Library(d, e_in)
     rows = []
-    for kname, source, replaces, lib_fn, lib_less, nbytes, flops in (
-            ("inline_attention_read", "st_inline.cu", "st_inline.py:222",
-             lib_read_fwd, None, read_bytes, read_flops),
-            ("inline_write_accumulate", "st_inline.cu", "st_inline.py:70",
-             lib_write_fwd, None, write_bytes, write_flops),
-            ("inline_attention_read_bwd", "st_inline.cu", "st_inline.py:234",
-             lib_read_bwd, lib_read_fwd, read_bwd_bytes, read_bwd_flops),
-            ("inline_write_accumulate_bwd", "st_inline.cu",
-             "st_inline.py:83", lib_write_bwd, lib_write_fwd,
-             write_bwd_bytes, write_bwd_flops),
-            ("fused_write_accumulate", "st_fused.cu", "st_fused.py:52",
-             lib_write_fwd, None, wmac_bytes, wmac_flops),
-            ("fused_write_accumulate_bwd", "st_fused.cu", "st_fused.py:63",
-             lib_write_bwd, lib_write_fwd, wmac_bwd_bytes, wmac_bwd_flops),
-            ("pallas_attention_read", "st_pallas.cu", "st_pallas.py:41",
-             lib_read_fwd, None, dots_bytes, dots_flops)):
+    for kname, source, replaces in (
+            ("inline_attention_read", "st_inline.cu", "st_inline.py:222"),
+            ("inline_write_accumulate", "st_inline.cu", "st_inline.py:70"),
+            ("inline_attention_read_bwd", "st_inline.cu", "st_inline.py:234"),
+            ("inline_write_accumulate_bwd", "st_inline.cu", "st_inline.py:83"),
+            ("fused_write_accumulate", "st_fused.cu", "st_fused.py:52"),
+            ("fused_write_accumulate_bwd", "st_fused.cu", "st_fused.py:63"),
+            ("pallas_attention_read", "st_pallas.cu", "st_pallas.py:41")):
         fn, plain_fn, _ = KERNELS[kname]
         ms = device_ms(lambda: fn(d, e_in))
         plain_ms = device_ms(lambda: plain_fn(d, e_in))
-        library_ms = device_ms(lib_fn)
-        if lib_less is not None:
-            library_ms -= device_ms(lib_less)
+        library_ms = lib.ms(kname)
+        nbytes, flops = costs(BATCH)[kname]
         b_ms, b_by = bound_ms(nbytes, flops)
         rows.append({
             "name": kname, "route": "cuda",
@@ -636,34 +669,20 @@ def main() -> None:
         say("times", card_line, f"{kname} B={BATCH}: ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
             f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} B, {flops} FLOP)")
-    # the streamed-weight kernels (resample in both directions, the
-    # write-accumulate forward) at B = 64, 256 and 1024, each beside its
-    # library chain with the weights prebuilt and its bound
+    # the redesigned kernels (the streamed-weight resample in both
+    # directions, the write-accumulate forward and backward, the inline read
+    # backward) at B = 64, 256 and 1024, each beside its library chain and
+    # its bound
     for b in SWEEP_BATCHES:
         db = kernel_inputs(b, seed=2000 + b)
         eb = core_inputs(db, seed=3000 + b)
-        (wy_r, wx_r), (wy_w, wx_w) = eb["w_read"], eb["w_write"]
-        co_wy_w = wy_w * db["coeff"][:, None, None]
-        wx_r_t, wx_w_t = wx_r.transpose(1, 2), wx_w.transpose(1, 2)
-        sweep = (
-            ("pallas_attention_read",
-             lambda: torch.bmm(torch.bmm(wy_r, db["img"]), wx_r_t),
-             f32 * b * (CS * CS + 2 * WS * CS + WS * WS),
-             2 * b * (WS * CS * CS + WS * WS * CS)),
-            ("pallas_attention_write",
-             lambda: torch.bmm(torch.bmm(wy_w, db["win"]), wx_w_t),
-             f32 * b * (WS * WS + 2 * CS * WS + CS * CS),
-             2 * b * (CS * WS * WS + CS * CS * WS)),
-            ("fused_write_accumulate",
-             lambda: torch.baddbmm(canvas3(db), torch.bmm(co_wy_w, db["win"]),
-                                   wx_w_t),
-             f32 * b * (2 * CS * WS + WS * WS + 1 + 2 * CS * CS),
-             2 * b * (CS * WS * WS + CS * CS * WS + CS * CS)))
-        for kname, lib_fn, nbytes, flops in sweep:
+        lib_b = Library(db, eb)
+        for kname in SWEPT:
             fn, plain_fn, _ = KERNELS[kname]
             ms = device_ms(lambda: fn(db, eb))
-            library_ms = device_ms(lib_fn)
+            library_ms = lib_b.ms(kname)
             plain_ms = device_ms(lambda: plain_fn(db, eb))
+            nbytes, flops = costs(b)[kname]
             b_ms, b_by = bound_ms(nbytes, flops)
             say("times", card_line, f"{kname} B={b}: ms={ms:.5f} "
                 f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "

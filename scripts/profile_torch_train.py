@@ -11,13 +11,16 @@ each st_impl ("inline" and "pallas": the hand-written kernels forward and
 backward; "xla": the plain PyTorch products). Prints, per st_impl: the
 wall time per step with the profiler on, the device busy share (summed
 device time of kernels and copies over that wall time), the kernels and
-copies per step, and those that take the most device time. Prints the
-card's name and power limit first. Needs a card; writes nothing.
+copies per step, the device time per step of the hand-written ST kernels
+(csrc/*.cu: every kernel named st_*), and those that take the most device
+time. Prints the card's name and power limit first. Needs a card; writes
+nothing.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import time
@@ -35,6 +38,7 @@ from air_tpu_torch.train.steps import make_train_step  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "air_tpu_torch", "assets", "serve_canvases.npz")
 STEPS = 10
+ST_KERNEL = re.compile(r"(?<![a-z])st_[a-z_]+?_kernel")   # csrc/*.cu kernels
 
 
 def main() -> None:
@@ -74,6 +78,13 @@ def main() -> None:
               f"({100 * device_us / wall_us:.1f}% of wall), "
               f"{kernels / STEPS:.0f} kernels and copies per step",
               flush=True)
+        st = [e for e in rows if ST_KERNEL.search(e.key)]
+        st_us = sum(e.self_device_time_total for e in st) / STEPS
+        print(f"  ST kernels: {st_us:.1f} us/step over "
+              f"{sum(e.count for e in st) / STEPS:.0f} launches; "
+              + "; ".join(f"{ST_KERNEL.search(e.key)[0]} "
+                          f"{e.self_device_time_total / STEPS:.1f} us x"
+                          f"{e.count // STEPS}" for e in st), flush=True)
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
             print(f"  {e.self_device_time_total / STEPS:9.1f} us/step "
                   f"x{e.count // STEPS:<4d} {e.key[:90]}", flush=True)

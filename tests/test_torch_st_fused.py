@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from air_tpu_torch.kernels import st_fused, st_pallas
+from air_tpu_torch.kernels import build, cluster, st_fused, st_pallas
 from air_tpu_torch.ops import transformer as ttr
 
 try:    # the machine with the card has no JAX; only the gpu test runs there
@@ -237,12 +237,137 @@ def test_forward_refuses_a_block_that_does_not_fit():
                           torch.empty((b,), device=dev))
 
 
+def _split(threads: int, *counts: int) -> list:
+    """(first thread, threads) of each of up to three products of ``counts``
+    work items (tiles, chains) run side by side, as st_cluster.cuh's Split:
+    each its items rounded up to whole warps, in order, if they all fit;
+    else each the whole block, one after the other."""
+    warps = [32 * -(-n // 32) for n in counts]
+    if sum(warps) > threads:
+        return [(0, threads)] * len(counts)
+    starts = [sum(warps[:k]) for k in range(len(counts))]
+    return list(zip(starts, warps))
+
+
+def _tile_outputs(t0: int, nt: int, rows: int, count: int,
+                  width: int) -> list:
+    """The (row, column) outputs each thread of [t0, t0 + nt) stores for a
+    group of ``count`` rows, as st_cluster.cuh's tile_product walks its
+    tiles: thread t0 + t takes tiles t, t + nt, ...; tile (p, q) =
+    divmod(tile, qn) stores rows p and p + rows / 2 at columns q + c * qn,
+    qn = ceil(width / TILE_COLS)."""
+    qn, half = -(-width // cluster.TILE_COLS), rows // 2
+    out = []
+    for t in range(nt):
+        seen = []
+        for tile in range(t, half * qn, nt):
+            p, q = divmod(tile, qn)
+            if p >= count:
+                continue
+            for c in range(cluster.TILE_COLS):
+                col = q + c * qn
+                if col >= width:
+                    continue
+                seen.append((p, col))
+                if p + half < count:
+                    seen.append((p + half, col))
+        out.append(seen)
+    return out
+
+
+def check_cluster_geometry(geo, b, n, n_out, phases):
+    """What a cluster geometry (kernels/cluster.py) promises: clusters of a
+    power of two up to MAX_CLUSTER CTAs, at most one CTA per SM (2 up to
+    B = 66, then 1); row groups that cover the n rows of the
+    intermediates and the n_out rows of the split output once each; in
+    each phase, products side by side on disjoint thread ranges of the block
+    (or each on the whole block), and register tiles that write each output
+    of a group exactly once; a CTA within the card's shared memory.
+    ``phases``: each phase's products, as ("rows" | "out", width) for
+    register tiles over the groups of the intermediates' or the output's
+    rows, or ("chains", k) for k chains per row of the intermediates.
+    Returns whether every phase runs its products side by side."""
+    c = geo.cluster
+    assert c == max(k for k in (1, 2, 4, 8) if k <= cluster.MAX_CLUSTER
+                    and (k == 1 or b * k <= cluster.SMS))
+    assert cluster.MAX_CLUSTER != 2 or c == (2 if b <= 66 else 1)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= cluster.MAX_THREADS
+    assert geo.smem_bytes <= build.MAX_SMEM_BYTES
+    groups = {}
+    for kind, rows, total in (("rows", geo.rows, n),
+                              ("out", geo.out_rows, n_out)):
+        assert rows >= 2 and rows % 2 == 0
+        groups[kind] = [range(r * rows, min(total, (r + 1) * rows))
+                        for r in range(c)]
+        assert [i for g in groups[kind] for i in g] == list(range(total))
+    side_by_side = True
+    for phase in phases:
+        counts = [k * geo.rows if kind == "chains"
+                  else cluster.tiles(geo.rows if kind == "rows"
+                                     else geo.out_rows, k)
+                  for kind, k in phase]
+        ranges = _split(geo.threads, *counts)
+        assert all(nt > 0 and t0 >= 0 and t0 + nt <= geo.threads
+                   for t0, nt in ranges)
+        if len(phase) > 1 and ranges[0] != ranges[1]:
+            assert all(a[0] + a[1] <= z[0] for a, z in zip(ranges, ranges[1:]))
+            assert all(nt >= cnt for (_, nt), cnt in zip(ranges, counts))
+        else:
+            side_by_side &= len(phase) == 1
+        for (kind, width), (t0, nt) in zip(phase, ranges):
+            if kind == "chains":
+                continue
+            rows = geo.rows if kind == "rows" else geo.out_rows
+            for g in groups[kind]:
+                seen = [o for per_thread in _tile_outputs(
+                    t0, nt, rows, len(g), width) for o in per_thread]
+                assert sorted(seen) == [(i, l) for i in range(len(g))
+                                        for l in range(width)]
+    return side_by_side
+
+
+@pytest.mark.parametrize("most", [None, 8])
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("b", GEOMETRY_BATCHES)
+def test_backward_launch_geometry(b, cs, ws, most, monkeypatch):
+    """The backward kernel's cluster geometry: the cs rows of gwx, tmp, d_Wy
+    and d_Wx and the ws rows of d_win split over the cluster, gwx beside tmp
+    and the three weight cotangents side by side where they fit, each output
+    written once, the CTA's layout within the card's shared memory, the bulk
+    path at every shape but the odd one; also with clusters of up to 8
+    (``most``), as scripts/sweep_st_geometry.py runs them."""
+    if most:
+        monkeypatch.setattr(cluster, "MAX_CLUSTER", most)
+    geo = st_fused.bwd_geometry(b, cs, ws)
+    side = check_cluster_geometry(
+        geo, b, cs, ws, [[("rows", ws), ("rows", ws)],
+                         [("rows", ws), ("rows", ws), ("out", ws)]])
+    assert geo.smem_bytes == 4 * st_fused._bwd_smem_floats(cs, ws)
+    assert geo.bulk == ((cs, ws) != (21, 7))
+    if (b, cs, ws, most) == (64, 50, 28, None):   # 2 x 96 + 64 threads
+        assert side and geo.threads == 256
+
+
+def test_backward_refuses_a_cta_that_does_not_fit():
+    """Off the CPU the backward computes its geometry before it builds or
+    launches anything: a 250 x 250 canvas (g alone 250 KB) does not fit one
+    CTA's shared memory."""
+    b, cs, ws, dev = 1, 250, 28, "meta"
+    w = torch.empty((b, cs, ws), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_fused.wmac_bwd(torch.empty((b, ws, ws), device=dev), w, w,
+                          torch.empty((b,), device=dev),
+                          torch.empty((b, cs, cs), device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        st_fused.bwd_geometry(b, cs, ws)
+
+
 @pytest.mark.gpu
-def test_kernels_match_plain_on_the_card():
+def test_kernels_match_plain_on_the_card(monkeypatch):
     """Build the CUDA kernels, launch each on the card and hold it against
     its plain version, at the tests' and the model's shapes, cs 100 and the
-    odd shape (21, 7) that takes the forward's 4-byte copy path; every launch
-    is counted."""
+    odd shape (21, 7) that takes the 4-byte copy path; every launch is
+    counted. The backward also in clusters of 8."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
     for b in CARD_BATCHES:
@@ -268,3 +393,20 @@ def test_kernels_match_plain_on_the_card():
             assert float(err.max()) <= 1e-4
             assert st_fused.LAUNCHES == {"fused_write_accumulate": 1,
                                          "fused_write_accumulate_bwd": 1}
+    # the backward in clusters of 8 (B = 1 and 7), as the sweep runs it
+    monkeypatch.setattr(cluster, "MAX_CLUSTER", 8)
+    for b in (1, 7):
+        for cs, ws in CARD_SHAPES:
+            d = _torch(_inputs(b, cs, ws, seed=70 + b), "cuda")
+            wy, wx = _weights(d, cs, ws)
+            g = torch.randn((b, cs, cs), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(b))
+            assert st_fused.bwd_geometry(b, cs, ws).cluster == 8
+            got = st_fused.wmac_bwd(d["windows"], wy, wx, d["coeff"], g)
+            torch.cuda.synchronize()
+            want = st_fused.wmac_bwd_plain(d["windows"], wy, wx, d["coeff"],
+                                           g)
+            for gg, ww in zip(got[:3], want[:3]):
+                torch.testing.assert_close(gg, ww, **TOL)
+            err = (got[3] - want[3]).abs() / want[3].abs().clamp(min=1.0)
+            assert float(err.max()) <= 1e-4

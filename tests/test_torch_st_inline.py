@@ -23,9 +23,10 @@ import numpy as np
 import pytest
 import torch
 
-from air_tpu_torch.kernels import st_inline
-from air_tpu_torch.ops.transformer import (_axis_weight_matrix,
-                                           attention_read, attention_write)
+from air_tpu_torch.kernels import cluster, st_inline
+from air_tpu_torch.ops.transformer import (_axis_weight_matrix, _linspace,
+                                           _pixel_coords, attention_read,
+                                           attention_write)
 
 try:    # the machine with the card has no JAX; only the gpu test runs there
     import jax.numpy as jnp
@@ -37,6 +38,12 @@ except ImportError:
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPES = [(30, 12), (50, 28)]
+# the read backward's launch geometry: the tests' and the model's shapes,
+# cs 100, and an odd shape whose ranges are not 16-byte multiples
+GEOMETRY_SHAPES = [(20, 8), (50, 28), (100, 28), (21, 7)]
+GEOMETRY_BATCHES = [1, 7, 64, 1024]
+CARD_SHAPES = SHAPES + [(100, 28), (21, 7)]
+CARD_BATCHES = [1, 7, 64, 256]
 
 
 def _inputs(b, cs, ws, seed):
@@ -264,10 +271,94 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
                                           d["x"], d["y"], d["coeff"], 30)
 
 
+@pytest.mark.parametrize("most", [None, 8])
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("b", GEOMETRY_BATCHES)
+def test_read_bwd_launch_geometry(b, cs, ws, most, monkeypatch):
+    """The read backward's cluster geometry: the ws rows of gwx and tmp (and
+    of the dp the CTA forms) and the cs rows of d_img split over the
+    cluster, d_img beside the dW chains where they fit, each output written
+    once, the CTA's layout within the card's shared memory, the bulk path at
+    every shape but the odd one; also with clusters of up to 8 (``most``),
+    as scripts/sweep_st_geometry.py runs them."""
+    from tests.test_torch_st_fused import check_cluster_geometry
+    if most:
+        monkeypatch.setattr(cluster, "MAX_CLUSTER", most)
+    geo = st_inline.read_bwd_geometry(b, cs, ws)
+    side = check_cluster_geometry(
+        geo, b, ws, cs, [[("rows", cs)], [("out", cs), ("chains", 4)]])
+    if (b, cs, ws, most) == (64, 50, 28, None):   # 192 + 64 threads
+        assert side and geo.threads == 256
+    assert geo.smem_bytes == 4 * st_inline._read_bwd_smem_floats(cs, ws,
+                                                                 geo.rows)
+    assert geo.bulk == ((cs, ws) != (21, 7))
+
+
+def test_read_bwd_refuses_a_cta_that_does_not_fit():
+    """Off the CPU the read backward computes its geometry before it builds
+    or launches anything: a 250 x 250 image (250 KB) does not fit one CTA's
+    shared memory."""
+    b, cs, ws, dev = 1, 250, 28, "meta"
+    s = torch.empty((b,), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.attention_read_bwd(torch.empty((b, cs, cs), device=dev),
+                                     torch.empty((b, ws, ws), device=dev),
+                                     s, s, s, s)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.read_bwd_geometry(b, cs, ws)
+
+
+def _two_tap_row(p, in_dim):
+    """A hat-matrix row as the read backward kernel forms it: zeros, then
+    relu(1 - |p - j|) at j = floor(p) and floor(p) + 1 where they lie in
+    [0, in_dim), all in float32."""
+    row = torch.zeros(in_dim, dtype=torch.float32)
+    j0 = torch.floor(p)
+    for tap in (0, 1):
+        jf = j0 + tap
+        if 0 <= float(jf) < in_dim:
+            j = int(jf)
+            row[j] = torch.clamp(1.0 - torch.abs(p - float(j)), min=0.0)
+    return row
+
+
+@pytest.mark.parametrize("in_dim", [50, 21])
+def test_two_tap_rows_are_the_dense_hat_rows(in_dim):
+    """The kernel's two taps per row give the dense hat matrix bit for bit:
+    rows of _axis_weight_matrix at scales of both signs (so positions rise
+    or fall along the rows) and shifts that push rows off either edge, and
+    single positions on and one ulp beside integers, at the edges and
+    outside the image."""
+    out_dim = 28
+    a = torch.tensor([-2.5, -1.0, -0.3, 0.0, 0.3, 1.0, 2.5],
+                     dtype=torch.float32)
+    c = torch.tensor([0.1, -0.9, 0.7, -0.2, 1.3, 0.0, -1.6],
+                     dtype=torch.float32)
+    dense = _axis_weight_matrix(a, c, out_dim, in_dim)
+    p = _pixel_coords(a[:, None] * _linspace(out_dim, "cpu")[None, :]
+                      + c[:, None], in_dim)
+    for b in range(len(a)):
+        for i in range(out_dim):
+            assert torch.equal(_two_tap_row(p[b, i], in_dim), dense[b, i])
+    f32 = np.float32
+    points = [f32(v) for v in (-3.0, -1.0, -0.5, 0.0, 0.5, 1.0, 7.0,
+                               in_dim - 2, in_dim - 1.5, in_dim - 1, in_dim,
+                               in_dim + 0.5)]
+    points += [np.nextafter(v, f32(d)) for v in points
+               for d in (-np.inf, np.inf)]
+    j = torch.arange(in_dim, dtype=torch.float32)
+    for v in points:
+        pv = torch.tensor(v, dtype=torch.float32)
+        want = torch.clamp(1.0 - torch.abs(pv - j), min=0.0)
+        assert torch.equal(_two_tap_row(pv, in_dim), want), float(v)
+
+
 @pytest.mark.gpu
-def test_kernels_match_plain_on_the_card():
+def test_kernels_match_plain_on_the_card(monkeypatch):
     """Build the CUDA kernels, launch each on the card and hold it against
-    its plain version; every launch is counted."""
+    its plain version; every launch is counted. The read backward also at
+    B = 1, 7, 64 and 256, cs 100 and the odd shape (21, 7) that takes its
+    4-byte copy path, and in clusters of 8."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
     for b in (1, 7, 64):
@@ -313,3 +404,25 @@ def test_kernels_match_plain_on_the_card():
                                           "inline_write_accumulate": 1,
                                           "inline_attention_read_bwd": 1,
                                           "inline_write_accumulate_bwd": 1}
+    # the read backward's cluster geometries: B = 1 to 256 (clusters of 2
+    # and 1, and of 8 as the sweep runs them), cs 100, and (21, 7) on the
+    # 4-byte copy path
+    cases = [(b, cs, ws, None) for b in CARD_BATCHES
+             for cs, ws in CARD_SHAPES]
+    cases += [(b, cs, ws, 8) for b in (1, 7) for cs, ws in CARD_SHAPES]
+    for b, cs, ws, most in cases:
+        if most:
+            monkeypatch.setattr(cluster, "MAX_CLUSTER", most)
+        d = _torch(_inputs(b, cs, ws, seed=60 + b), "cuda")
+        g_read = torch.from_numpy(_cotangents(b, cs, ws, 60 + b)[0]).cuda()
+        read_s, _ = _scalar_inputs(d)
+        st_inline.reset_launches()
+        got = st_inline.attention_read_bwd(d["images"], g_read, *read_s)
+        torch.cuda.synchronize()
+        want = st_inline.attention_read_bwd_plain(d["images"], g_read,
+                                                  *read_s)
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        for gg, ww in zip(got[1:], want[1:]):
+            err = (gg - ww).abs() / ww.abs().clamp(min=1.0)
+            assert float(err.max()) <= 1e-4, (b, cs, ws, most)
+        assert st_inline.LAUNCHES["inline_attention_read_bwd"] == 1
