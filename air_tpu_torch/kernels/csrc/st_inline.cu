@@ -32,24 +32,54 @@
 // 1.48 MB (0.44 us) for 23.5 MFLOP (0.35 us), the write backward 1.04 MB
 // (0.31 us) for 20.2 MFLOP (0.30 us), counting dW only at the two taps per
 // row that the scalar cotangents take and d_coeff as <Wy win, g Wx>. All
-// are far below the few microseconds of a kernel launch, so launch latency
-// bounds them, not bytes or operations.
+// are far below the few microseconds of a kernel launch, so the latency of
+// a launch's dependent steps bounds them, not bytes or operations.
 //
-// Kernels 1, 2 and 4 (read, write, write backward), right and simple first:
-// one block per image. The block stages its inputs in shared memory, forms
-// each hat weight in registers from (a, c),
-// keeps every intermediate product in shared memory, so no weight matrix
-// and no intermediate touches device memory. Every product is an fp32 FMA
-// (no TF32). The weights are rounded exactly as the plain PyTorch version
-// rounds them (explicit _rn intrinsics, no contraction): the grid t by
-// jnp.linspace's formula, not the TPU kernel's -1 + 2 i / (out - 1), which
-// differs by an ulp at some i; in the write, a = 1/s (up to 10) times
-// (ws - 1.001) / 2 magnifies that ulp to ~1e-5 in the output, and in the
-// backward an ulp of p can move a tap of the mask. The backward kernels
-// form dW only at the (at most two) taps j of each row where the mask is
-// non-zero, and reduce the scalars in a fixed order inside the block (no
-// atomics), so a run gives the same bits every time. The write kernel
-// reads `canvas` and writes `out`; the wrapper passes a fresh `out`.
+// Every product is an fp32 FMA (no TF32). The weights are rounded exactly
+// as the plain PyTorch version rounds them (explicit _rn intrinsics, no
+// contraction): the grid t by jnp.linspace's formula, not the TPU kernel's
+// -1 + 2 i / (out - 1), which differs by an ulp at some i; in the write,
+// a = 1/s (up to 10) times (ws - 1.001) / 2 magnifies that ulp to ~1e-5 in
+// the output, and in the backward an ulp of p can move a tap of the mask.
+// No kernel uses atomics, and every output keeps one order of sums, so a
+// run gives the same bits every time. The write kernel reads `canvas` and
+// writes `out`; the wrapper passes a fresh `out`.
+//
+// Kernels 1 and 2 (read, write): two taps per hat row, spread over the
+// card. A row of a hat matrix has at most two non-zero weights, at
+// floor(p) and floor(p) + 1, so each output takes 4 inputs and 6 FMAs
+// instead of dense chains over the whole inner axis (the TPU kernel's two
+// MXU products; dense is cheap there, not in fp32 here):
+//   tmp(i, k) = fmaf(wy1, X[jy + 1, k], fmaf(wy0, X[jy, k], 0))  at k = kx,
+//               kx + 1,
+//   out(i, l) = fmaf(tmp(i, kx + 1), wx1, fmaf(tmp(i, kx), wx0, 0)),
+// where X is the image (read) or the window (write), and the write adds
+// canvas + coeff * out. This is the dense chain's result bit for bit: a
+// dense term whose weight is +0 adds +0 or -0 to an accumulator that
+// started at +0 and so is never -0, which leaves it as it is for finite X,
+// and the two taps come in the dense chain's ascending order. Each hat row
+// is kept as a Tap (j, w0, w1): the row is w0 at column j, w1 at j + 1 and
+// 0 elsewhere, with j clamped into [0, in - 2] so both reads are in range; a
+// tap outside [0, in) gets weight 0, and a NaN or far-off position none (as
+// the dense chain, whose fmaxf drops a NaN), since floorf(p) is compared
+// in float before any cast to int (tests/test_torch_st_inline.py mirrors
+// two_taps). One block per (image, band of output rows), so a batch of 64
+// gives every SM blocks and one image spans many SMs
+// (kernels/st_inline.py:fwd_geometry): the block forms its rows' and the
+// columns' taps once into shared memory (one __fdiv_rn per row or column),
+// then each thread writes kVec (2 where the width is even: float2 loads and
+// stores) neighbouring outputs of a row, neighbouring lanes on neighbouring
+// columns, reading X through the read-only cache or, with `stage`, from the
+// band's rows of X staged in shared memory while the taps are formed (a
+// bulk copy on an mbarrier where the range is 16-byte sized and aligned,
+// else 4-byte cp.async). Compile-time sizes for the model's (50, 28).
+//
+// Kernel 4 (write backward), right and simple first: one 256-thread block
+// per image that stages its inputs in shared memory, forms each hat weight
+// in registers from (a, c) and keeps every intermediate product in shared
+// memory; it forms dW only at the (at most two) taps j of each row where
+// the mask is non-zero, and reduces the scalars in a fixed order inside the
+// block.
 //
 // The read backward (st_read_bwd_kernel, on st_cluster.cuh) gives each
 // image a cluster of 2 CTAs up to B = 66 (128 CTAs for 132 SMs at B = 64)
@@ -107,76 +137,189 @@ __device__ __forceinline__ float hat(float p, int j) {
   return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(p, static_cast<float>(j)))));
 }
 
-__global__ void __launch_bounds__(kThreads)
-st_read_kernel(const float* __restrict__ img, const float* __restrict__ ay,
-               const float* __restrict__ cy, const float* __restrict__ ax,
-               const float* __restrict__ cx, float* __restrict__ out, int cs,
-               int ws, float kpix) {
-  extern __shared__ float smem[];
-  float* img_s = smem;            // [cs, cs]
-  float* tmp_s = smem + cs * cs;  // [ws, cs] = Wy @ img
-  const int b = blockIdx.x;
-  const float* img_b = img + static_cast<size_t>(b) * cs * cs;
-  for (int idx = threadIdx.x; idx < cs * cs; idx += blockDim.x) {
-    img_s[idx] = img_b[idx];
+// -------------------- forward: two taps per hat row ------------------------
+
+constexpr int kFwdThreads = 256;
+
+// A hat row relu(1 - |p - j'|) over j' in [0, n), n >= 2: w0 at column j, w1
+// at j + 1, 0 elsewhere; j in [0, n - 2]. 16 bytes, one shared load.
+struct __align__(16) Tap {
+  int j;
+  float w0, w1, unused;
+};
+
+// Column floor(p) + tap (tap 0 or 1) of position p into *j, if it lies in
+// [0, n). floorf(p) is compared in float before the cast, so a NaN or a p
+// beyond int's range gives no column.
+__device__ __forceinline__ bool tap_column(float p, int tap, int n, int* j) {
+  const float jf = floorf(p) + static_cast<float>(tap);
+  if (!(jf >= 0.0f && jf < static_cast<float>(n))) return false;
+  *j = static_cast<int>(jf);
+  return true;
+}
+
+// The row of position p: its taps floor(p) and floor(p) + 1 where they lie
+// in [0, n), weighted as the dense row weights them (hat), and j the first
+// tap clamped into [0, n - 2] (0 for a NaN p, whose row has no tap).
+__device__ __forceinline__ Tap two_taps(float p, int n) {
+  Tap t;
+  t.j = static_cast<int>(
+      fminf(fmaxf(floorf(p), 0.0f), static_cast<float>(n - 2)));
+  t.w0 = t.w1 = t.unused = 0.0f;
+#pragma unroll
+  for (int tap = 0; tap < 2; ++tap) {
+    int j;
+    if (tap_column(p, tap, n, &j)) {
+      const float w = hat(p, j);
+      if (j == t.j) {
+        t.w0 = w;
+      } else {
+        t.w1 = w;
+      }
+    }
   }
+  return t;
+}
+
+// One band of output rows [r0, r0 + rows) of out[b] (n x n) = Wy X[b] Wx^T
+// (X[b] in x in), or with kCanvas canvas[b] + coeff[b] * (Wy X[b] Wx^T),
+// from block blockIdx.x = b * bands + band. kIn, kOut: the sizes fixed at
+// compile time, or 0 to take them from the arguments. kVec: outputs per
+// item, neighbouring columns of one row (2 needs n even and 8-byte aligned
+// out and canvas). stage: X's rows that the band's taps touch are copied
+// into shared memory first; bulk: by one bulk copy (X 16-byte aligned,
+// in * in a multiple of 4).
+template <int kIn, int kOut, int kVec, bool kCanvas>
+__device__ __forceinline__ void two_tap_band(
+    const float* __restrict__ x, const float* __restrict__ ay,
+    const float* __restrict__ cy, const float* __restrict__ ax,
+    const float* __restrict__ cx, const float* __restrict__ canvas,
+    const float* __restrict__ coeff, float* __restrict__ out, int in_arg,
+    int n_arg, float kpix, int bands, int rows, int stage, int bulk) {
+  const int in = kIn ? kIn : in_arg, n = kOut ? kOut : n_arg;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int b = blockIdx.x / bands, band = blockIdx.x - b * bands;
+  const int r0 = band * rows, rb = min(rows, n - r0);
+  Tap* ty = reinterpret_cast<Tap*>(smem);   // [rb] the band's rows
+  Tap* tx = ty + rb;                        // [n] the columns
+  float* x_s = smem + 4 * (rows + n);       // the staged rows of X
   const float a_y = ay[b], c_y = cy[b], a_x = ax[b], c_x = cx[b];
-  __syncthreads();
+  const float* x_b = x + static_cast<size_t>(b) * in * in;
 
-  for (int idx = threadIdx.x; idx < ws * cs; idx += blockDim.x) {
-    const int i = idx / cs, k = idx - i * cs;
-    const float p = hat_pos(a_y, c_y, i, ws, kpix);
-    float acc = 0.0f;
-    for (int j = 0; j < cs; ++j) acc = fmaf(hat(p, j), img_s[j * cs + k], acc);
-    tmp_s[idx] = acc;
+  // Staged: rows [lo, hi) of X hold every tap of the band. p is monotone in
+  // the row index (each rounding step is), so the end rows' taps bound the
+  // others'; a row without a tap (NaN p) is clamped into the range below.
+  int lo = 0, hi = in, off = 0;
+  if (stage) {
+    const int ja = two_taps(hat_pos(a_y, c_y, r0, n, kpix), in).j;
+    const int jb = two_taps(hat_pos(a_y, c_y, r0 + rb - 1, n, kpix), in).j;
+    lo = min(ja, jb);
+    hi = max(ja, jb) + 2;
+    if (bulk) {
+      off = (lo * in) & ~3;
+      const uint32_t bytes = 4u * (st_resample::round4(hi * in) - off);
+      if (threadIdx.x == 0) {
+        st_resample::mbar_init(&bar);
+        st_resample::mbar_fence_init();
+        st_resample::mbar_expect_tx(&bar, bytes);
+        st_resample::bulk_copy(x_s, x_b + off, bytes, &bar);
+      }
+    } else {
+      off = lo * in;
+      st_resample::copy4(x_s, x_b + off, (hi - lo) * in);
+      st_resample::copy4_commit();
+    }
   }
-  __syncthreads();
+  for (int t = threadIdx.x; t < rb + n; t += blockDim.x) {
+    ty[t] = t < rb ? two_taps(hat_pos(a_y, c_y, r0 + t, n, kpix), in)
+                   : two_taps(hat_pos(a_x, c_x, t - rb, n, kpix), in);
+  }
+  if (stage && !bulk) st_resample::copy4_wait<0>();
+  __syncthreads();   // the taps, and the barrier's init, seen by every thread
+  if (stage && bulk) st_resample::mbar_wait(&bar, 0);
 
-  float* out_b = out + static_cast<size_t>(b) * ws * ws;
-  for (int idx = threadIdx.x; idx < ws * ws; idx += blockDim.x) {
-    const int i = idx / ws, l = idx - i * ws;
-    const float p = hat_pos(a_x, c_x, l, ws, kpix);
-    float acc = 0.0f;
-    for (int k = 0; k < cs; ++k) acc = fmaf(tmp_s[i * cs + k], hat(p, k), acc);
-    out_b[idx] = acc;
+  const float co = kCanvas ? coeff[b] : 0.0f;
+  const int per_row = n / kVec, items = rb * per_row;
+  float* out_b = out + (static_cast<size_t>(b) * n + r0) * n;
+  const float* canvas_b =
+      kCanvas ? canvas + (static_cast<size_t>(b) * n + r0) * n : nullptr;
+  auto run = [&](auto ld) {
+    for (int it = threadIdx.x; it < items; it += blockDim.x) {
+      const int i = it / per_row, l = (it - i * per_row) * kVec;
+      Tap r = ty[i];
+      r.j = min(max(r.j, lo), hi - 2);
+      const int row0 = r.j * in, row1 = row0 + in;
+      float v[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const Tap c = tx[l + e];
+        const float t0 = fmaf(r.w1, ld(row1 + c.j),
+                              fmaf(r.w0, ld(row0 + c.j), 0.0f));
+        const float t1 = fmaf(r.w1, ld(row1 + c.j + 1),
+                              fmaf(r.w0, ld(row0 + c.j + 1), 0.0f));
+        v[e] = fmaf(t1, c.w1, fmaf(t0, c.w0, 0.0f));
+      }
+      const int o = i * n + l;
+      if constexpr (kCanvas) {
+        if constexpr (kVec == 2) {
+          const float2 cv = __ldg(reinterpret_cast<const float2*>(canvas_b + o));
+          v[0] = __fadd_rn(cv.x, __fmul_rn(co, v[0]));
+          v[1] = __fadd_rn(cv.y, __fmul_rn(co, v[1]));
+        } else {
+          v[0] = __fadd_rn(__ldg(canvas_b + o), __fmul_rn(co, v[0]));
+        }
+      }
+      if constexpr (kVec == 2) {
+        *reinterpret_cast<float2*>(out_b + o) = make_float2(v[0], v[1]);
+      } else {
+        out_b[o] = v[0];
+      }
+    }
+  };
+  if (stage) {
+    run([&](int idx) { return x_s[idx - off]; });
+  } else {
+    run([&](int idx) { return __ldg(x_b + idx); });
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kCs, int kWs, int kVec>
+__global__ void __launch_bounds__(kFwdThreads)
+st_read_kernel(const float* __restrict__ img, const float* __restrict__ ay,
+               const float* __restrict__ cy, const float* __restrict__ ax,
+               const float* __restrict__ cx, float* __restrict__ out, int cs,
+               int ws, float kpix, int bands, int rows, int stage, int bulk) {
+  two_tap_band<kCs, kWs, kVec, false>(img, ay, cy, ax, cx, nullptr, nullptr,
+                                      out, cs, ws, kpix, bands, rows, stage,
+                                      bulk);
+}
+
+template <int kCs, int kWs, int kVec>
+__global__ void __launch_bounds__(kFwdThreads)
 st_write_kernel(const float* __restrict__ canvas, const float* __restrict__ win,
                 const float* __restrict__ ay, const float* __restrict__ cy,
                 const float* __restrict__ ax, const float* __restrict__ cx,
                 const float* __restrict__ coeff, float* __restrict__ out,
-                int cs, int ws, float kpix) {
-  extern __shared__ float smem[];
-  float* win_s = smem;            // [ws, ws]
-  float* tmp_s = smem + ws * ws;  // [cs, ws] = Wy @ win
-  const int b = blockIdx.x;
-  const float* win_b = win + static_cast<size_t>(b) * ws * ws;
-  for (int idx = threadIdx.x; idx < ws * ws; idx += blockDim.x) {
-    win_s[idx] = win_b[idx];
-  }
-  const float a_y = ay[b], c_y = cy[b], a_x = ax[b], c_x = cx[b];
-  const float co = coeff[b];
-  __syncthreads();
+                int cs, int ws, float kpix, int bands, int rows, int stage,
+                int bulk) {
+  two_tap_band<kWs, kCs, kVec, true>(win, ay, cy, ax, cx, canvas, coeff, out,
+                                     ws, cs, kpix, bands, rows, stage, bulk);
+}
 
-  for (int idx = threadIdx.x; idx < cs * ws; idx += blockDim.x) {
-    const int i = idx / ws, k = idx - i * ws;
-    const float p = hat_pos(a_y, c_y, i, cs, kpix);
-    float acc = 0.0f;
-    for (int j = 0; j < ws; ++j) acc = fmaf(hat(p, j), win_s[j * ws + k], acc);
-    tmp_s[idx] = acc;
-  }
-  __syncthreads();
-
-  const size_t base = static_cast<size_t>(b) * cs * cs;
-  for (int idx = threadIdx.x; idx < cs * cs; idx += blockDim.x) {
-    const int i = idx / cs, l = idx - i * cs;
-    const float p = hat_pos(a_x, c_x, l, cs, kpix);
-    float acc = 0.0f;
-    for (int k = 0; k < ws; ++k) acc = fmaf(tmp_s[i * ws + k], hat(p, k), acc);
-    out[base + idx] = __fadd_rn(canvas[base + idx], __fmul_rn(co, acc));
-  }
+// What the forward launchers check of the geometry the wrapper passes
+// (kernels/st_inline.py:fwd_geometry): X in x in, out n x n.
+inline bool fwd_geometry_ok(int in, int n, int bands, int rows, int threads,
+                            int smem_bytes, int vec, int stage, int bulk) {
+  const size_t need = sizeof(float) * (4 * static_cast<size_t>(rows + n) +
+                                       (stage ? static_cast<size_t>(in) * in
+                                              : 0));
+  return in >= 2 && n >= 2 && rows >= 1 && bands >= 1 && bands * rows >= n &&
+         (bands - 1) * rows < n && threads >= 32 && threads <= kFwdThreads &&
+         threads % 32 == 0 && (vec == 1 || (vec == 2 && n % 2 == 0)) &&
+         (stage == 0 || stage == 1) &&
+         (bulk == 0 || (bulk == 1 && stage == 1 && in * in % 4 == 0)) &&
+         need <= static_cast<size_t>(smem_bytes);
 }
 
 // -------------------- backward --------------------------------------------
@@ -310,13 +453,9 @@ st_read_bwd_kernel(const float* __restrict__ img, const float* __restrict__ g,
     const bool y_axis = r < ws;
     const float p = y_axis ? py_s[r] : px_s[r - ws];
     float* row = y_axis ? wy_s + r * cs : wx_s + (r - ws) * cs;
-    const float j0 = floorf(p);
     for (int tap = 0; tap < 2; ++tap) {
-      const float jf = j0 + static_cast<float>(tap);
-      if (jf >= 0.0f && jf < static_cast<float>(cs)) {
-        const int j = static_cast<int>(jf);
-        row[j] = hat(p, j);
-      }
+      int j;
+      if (tap_column(p, tap, cs, &j)) row[j] = hat(p, j);
     }
   }
   if (bulk) {
@@ -336,12 +475,10 @@ st_read_bwd_kernel(const float* __restrict__ img, const float* __restrict__ g,
                });
   for (int idx = threadIdx.x; idx < own.count * cs; idx += blockDim.x) {
     const int i = own.first + idx / cs, k = idx % cs;
-    const float j0 = floorf(py_s[i]);
     float acc = 0.0f;
     for (int tap = 0; tap < 2; ++tap) {
-      const float jf = j0 + static_cast<float>(tap);
-      if (jf >= 0.0f && jf < static_cast<float>(cs)) {
-        const int j = static_cast<int>(jf);
+      int j;
+      if (tap_column(py_s[i], tap, cs, &j)) {
         acc = fmaf(wy_s[i * cs + j], img_s[j * cs + k], acc);
       }
     }
@@ -371,9 +508,9 @@ st_read_bwd_kernel(const float* __restrict__ img, const float* __restrict__ g,
     const bool y_axis = item < own.count;
     const int i = own.first + (y_axis ? item : item - own.count);
     const float p = y_axis ? py_s[i] : px_s[i];
-    const int j = static_cast<int>(floorf(p)) + tap;
+    int j;
     float dw = 0.0f;
-    if (j >= 0 && j < cs && tap_sign(p, j) != 0.0f) {
+    if (tap_column(p, tap, cs, &j) && tap_sign(p, j) != 0.0f) {
       if (y_axis) {
         for (int k = 0; k < cs; ++k) {
           dw = fmaf(gwx_s[i * cs + k], img_s[j * cs + k], dw);
@@ -393,12 +530,12 @@ st_read_bwd_kernel(const float* __restrict__ img, const float* __restrict__ g,
     const bool y_axis = item < own.count;
     const int i = own.first + (y_axis ? item : item - own.count);
     const float p = y_axis ? py_s[i] : px_s[i];
-    const int j0 = static_cast<int>(floorf(p));
     float dp = 0.0f;
     for (int tap = 0; tap < 2; ++tap) {
-      const int j = j0 + tap;
+      int j;
+      if (!tap_column(p, tap, cs, &j)) continue;
       const float sgn = tap_sign(p, j);
-      if (j < 0 || j >= cs || sgn == 0.0f) continue;
+      if (sgn == 0.0f) continue;
       dp = __fadd_rn(dp, __fmul_rn(sgn, dw_s[2 * item + tap]));
     }
     dp_last[(y_axis ? 0 : ws) + i] = dp;
@@ -494,11 +631,12 @@ st_write_bwd_kernel(const float* __restrict__ win, const float* __restrict__ g,
     const bool y_axis = r < cs;
     const int i = y_axis ? r : r - cs;
     const float p = y_axis ? py_s[i] : px_s[i];
-    const int j0 = static_cast<int>(floorf(p));
     float dp = 0.0f;
-    for (int j = j0; j <= j0 + 1; ++j) {
+    for (int tap = 0; tap < 2; ++tap) {
+      int j;
+      if (!tap_column(p, tap, ws, &j)) continue;
       const float sgn = tap_sign(p, j);
-      if (j < 0 || j >= ws || sgn == 0.0f) continue;
+      if (sgn == 0.0f) continue;
       float dw = 0.0f;
       if (y_axis) {
         for (int k = 0; k < ws; ++k) dw = fmaf(gwx_s[i * ws + k], win_s[j * ws + k], dw);
@@ -527,26 +665,39 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
-// Each launcher takes device pointers, the batch and the two sizes (the read
-// backward also the geometry of kernels/st_inline.py:read_bwd_geometry: CTAs
-// per cluster, rows of gwx / tmp per CTA, rows of d_img per CTA, threads,
-// shared-memory bytes per CTA and 1 for the bulk-copy path), and the stream;
-// it enqueues one kernel and returns cudaGetLastError() (0 = the launch was
-// accepted), the error of the shared-memory attribute call or of the cluster
-// launch, or cudaErrorInvalidValue for a geometry the read backward cannot
-// run. The wrapper checks shapes, types, contiguity and, for the bulk path,
+// Each launcher takes device pointers, the batch and the two sizes (the
+// forward kernels also the geometry of kernels/st_inline.py:fwd_geometry:
+// bands per image, rows per band, threads, shared-memory bytes per block,
+// outputs per item, 1 to stage X and 1 for the bulk-copy path; the read
+// backward that of read_bwd_geometry: CTAs per cluster, rows of gwx / tmp
+// per CTA, rows of d_img per CTA, threads, shared-memory bytes per CTA and 1
+// for the bulk-copy path), and the stream; it enqueues one kernel and
+// returns cudaGetLastError() (0 = the launch was accepted), the error of the
+// shared-memory attribute call or of the cluster launch, or
+// cudaErrorInvalidValue for a geometry the kernel cannot run. The wrapper
+// checks shapes, types, contiguity and, for the float2 and bulk paths,
 // alignment.
 
 extern "C" int st_inline_read(const float* img, const float* ay,
                               const float* cy, const float* ax,
                               const float* cx, float* out, int batch, int cs,
-                              int ws, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(cs * cs + ws * cs) * sizeof(float);
-  const cudaError_t err = allow_smem(st_read_kernel, smem);
+                              int ws, int bands, int rows, int threads,
+                              int smem_bytes, int vec, int stage, int bulk,
+                              cudaStream_t stream) {
+  if (!fwd_geometry_ok(cs, ws, bands, rows, threads, smem_bytes, vec, stage,
+                       bulk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // compile-time sizes at the model's (50, 28) with float2 items
+  const auto kernel = cs == 50 && ws == 28 && vec == 2
+                          ? st_read_kernel<50, 28, 2>
+                          : (vec == 2 ? st_read_kernel<0, 0, 2>
+                                      : st_read_kernel<0, 0, 1>);
+  const cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float kpix = static_cast<float>((cs - 1.001) / 2.0);
-  st_read_kernel<<<batch, kThreads, smem, stream>>>(img, ay, cy, ax, cx, out,
-                                                    cs, ws, kpix);
+  kernel<<<batch * bands, threads, smem_bytes, stream>>>(
+      img, ay, cy, ax, cx, out, cs, ws, kpix, bands, rows, stage, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -554,13 +705,23 @@ extern "C" int st_inline_write(const float* canvas, const float* win,
                                const float* ay, const float* cy,
                                const float* ax, const float* cx,
                                const float* coeff, float* out, int batch,
-                               int cs, int ws, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(ws * ws + cs * ws) * sizeof(float);
-  const cudaError_t err = allow_smem(st_write_kernel, smem);
+                               int cs, int ws, int bands, int rows,
+                               int threads, int smem_bytes, int vec,
+                               int stage, int bulk, cudaStream_t stream) {
+  if (!fwd_geometry_ok(ws, cs, bands, rows, threads, smem_bytes, vec, stage,
+                       bulk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = cs == 50 && ws == 28 && vec == 2
+                          ? st_write_kernel<50, 28, 2>
+                          : (vec == 2 ? st_write_kernel<0, 0, 2>
+                                      : st_write_kernel<0, 0, 1>);
+  const cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float kpix = static_cast<float>((ws - 1.001) / 2.0);
-  st_write_kernel<<<batch, kThreads, smem, stream>>>(
-      canvas, win, ay, cy, ax, cx, coeff, out, cs, ws, kpix);
+  kernel<<<batch * bands, threads, smem_bytes, stream>>>(
+      canvas, win, ay, cy, ax, cx, coeff, out, cs, ws, kpix, bands, rows,
+      stage, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,14 +23,17 @@ devices; a strided input (the model passes column views such as
 ``shift[:, 0]``) is copied to a contiguous one before the launch. Each
 kernel launch adds one to ``LAUNCHES[<name>]``, and nothing else does.
 
-The read backward runs a cluster of CTAs per image; ``read_bwd_geometry``
-(``cluster.geometry``) computes its split, the launcher checks it, and the
-CPU tests reach it here.
+The forward kernels run one block per (image, band of output rows);
+``fwd_geometry`` computes the bands. The read backward runs a cluster of
+CTAs per image; ``read_bwd_geometry`` (``cluster.geometry``) computes its
+split. The launchers check what they are given, and the CPU tests reach the
+geometry here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -53,13 +56,79 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("st_inline").lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-    for fn, n_ptr, n_int in ((lib.st_inline_read, 6, 3),
-                             (lib.st_inline_write, 8, 3),
+    for fn, n_ptr, n_int in ((lib.st_inline_read, 6, 10),
+                             (lib.st_inline_write, 8, 10),
                              (lib.st_inline_read_bwd, 11, 9),
                              (lib.st_inline_write_bwd, 13, 3)):
         fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
     return lib
+
+
+# launch geometry of the forward kernels, as csrc/st_inline.cu takes it
+# (both constants from scripts/sweep_st_geometry.py, PERF.md): two blocks
+# per SM were as fast as one or faster at B = 1 to 1024; staging the input
+# in shared memory paid only where each thread loops over 4 or more items
+# (the write at B >= 256), and was slower at 1-2 items
+FILL_BLOCKS = 2 * cluster.SMS   # blocks a launch aims for, where rows allow
+MAX_FWD_THREADS = 256           # the forward kernels' __launch_bounds__
+STAGE_ITEMS = 4                 # items per thread from which X is staged
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdGeometry:
+    """One launch of the read or write forward kernel: ``bands`` bands of
+    ``rows`` consecutive output rows per image (the last may have fewer),
+    one block of ``threads`` threads and ``smem_bytes`` of shared memory per
+    band; each thread item writes ``vec`` neighbouring outputs of a row (2
+    where the output width is even: float2 loads and stores, which the
+    wrapper also needs 8-byte aligned pointers for); ``stage`` when the
+    band's rows of the input are copied into shared memory (a thread loops
+    over STAGE_ITEMS items or more), ``bulk`` when that copy is one
+    16-byte-sized 1-D bulk copy (the wrapper also needs a 16-byte aligned
+    input for it)."""
+    bands: int
+    rows: int
+    threads: int
+    vec: int
+    smem_bytes: int
+    stage: bool
+    bulk: bool
+
+
+def fwd_geometry(batch: int, in_dim: int, out_dim: int,
+                 name: str) -> FwdGeometry:
+    """How a launch of ``out = Wy @ X @ Wx^T`` (X [B, in, in], out [B, out,
+    out]; the read and the write alike) splits its work: the fewest bands
+    per image that give FILL_BLOCKS blocks where the output rows allow (one
+    row per band at most), the rows spread evenly over them; threads for one
+    item each, within MAX_FWD_THREADS (the block loops over the rest). The
+    block's shared memory holds a 16-byte tap per band row and per column,
+    and when staged up to the whole input. Raises if a block does not
+    fit."""
+    want = min(out_dim, -(-FILL_BLOCKS // batch))
+    rows = -(-out_dim // want)
+    while rows > 1 and -(-out_dim // rows) < want:
+        rows -= 1
+    bands = -(-out_dim // rows)
+    rows = -(-out_dim // bands)
+    vec = 2 if out_dim % 2 == 0 else 1
+    items = rows * out_dim // vec
+    threads = min(MAX_FWD_THREADS, 32 * -(-items // 32))
+    stage = -(-items // threads) >= STAGE_ITEMS
+    floats = 4 * (rows + out_dim) + (in_dim * in_dim if stage else 0)
+    build.check_smem(name, floats)
+    return FwdGeometry(bands, rows, threads, vec, 4 * floats, stage,
+                       stage and in_dim * in_dim % 4 == 0)
+
+
+def _fwd_launch_args(geo: FwdGeometry, x: torch.Tensor, *outputs) -> tuple:
+    """The geometry as the launchers take it: float2 items only where every
+    output-shaped tensor is 8-byte aligned, the bulk copy only where the
+    input is 16-byte aligned."""
+    vec = geo.vec if all(t.data_ptr() % 8 == 0 for t in outputs) else 1
+    return (geo.bands, geo.rows, geo.threads, geo.smem_bytes, vec,
+            int(geo.stage), int(geo.bulk and x.data_ptr() % 16 == 0))
 
 
 def _read_bwd_smem_floats(cs: int, ws: int, rows: int) -> int:
@@ -164,10 +233,11 @@ def attention_read_fwd(images, ay, cy, ax, cx, ws: int) -> torch.Tensor:
     b, cs = images.shape[0], images.shape[-1]
     if images.device.type == "cpu":
         return attention_read_fwd_plain(images, ay, cy, ax, cx, ws)
+    geo = fwd_geometry(b, cs, ws, "inline_attention_read")
     images, ay, cy, ax, cx = build.contiguous(images, ay, cy, ax, cx)
     out = torch.empty((b, ws, ws), dtype=torch.float32, device=images.device)
     build.launch(_lib().st_inline_read, images.device, images, ay, cy, ax,
-                 cx, out, b, cs, ws)
+                 cx, out, b, cs, ws, *_fwd_launch_args(geo, images, out))
     LAUNCHES["inline_attention_read"] += 1
     return out
 
@@ -199,11 +269,13 @@ def write_accumulate_fwd(canvas, windows, ay, cy, ax, cx, coeff):
     if canvas.device.type == "cpu":
         return write_accumulate_fwd_plain(canvas, windows, ay, cy, ax, cx,
                                           coeff)
+    geo = fwd_geometry(b, ws, cs, "inline_write_accumulate")
     canvas, windows, ay, cy, ax, cx, coeff = build.contiguous(
         canvas, windows, ay, cy, ax, cx, coeff)
     out = torch.empty_like(canvas)
     build.launch(_lib().st_inline_write, canvas.device, canvas, windows, ay,
-                 cy, ax, cx, coeff, out, b, cs, ws)
+                 cy, ax, cx, coeff, out, b, cs, ws,
+                 *_fwd_launch_args(geo, windows, canvas, out))
     LAUNCHES["inline_write_accumulate"] += 1
     return out
 

@@ -23,7 +23,8 @@ line with the card's name and power limit as nvidia-smi reports them:
               infer call launches each of the path's forward kernels
               max_steps times and no other kernel; digit-count accuracy >=
               0.9; the same requests through the plain versions agree
-              (reconstructions to 1e-4, digit counts exactly).
+              (reconstructions to 1e-4, digit counts exactly); prints a
+              sha256 digest of the served reconstructions.
   5. train    the training step of DEFAULT_TRAINING_CONFIG with cnn=True at
               full width, batch 64 (the 60 fixture canvases and their first
               4 again), from create_train_state (seed 0), for each path.
@@ -35,7 +36,9 @@ line with the card's name and power limit as nvidia-smi reports them:
               kernels max_steps times and no other kernel, every loss is
               finite, every parameter leaf moves, and the mean
               reconstruction loss of the last 5 steps is below that of the
-              first 5. The eval summaries of the trained state are finite
+              first 5; prints a sha256 digest of the trained params (two
+              trees give the same digest when they train to the same bits).
+              The eval summaries of the trained state are finite
               wherever their slice is non-empty, and save_checkpoint /
               load_checkpoint (in a temporary directory) round-trip params,
               moments and step bit for bit. Last, two runs of the first
@@ -46,8 +49,9 @@ line with the card's name and power limit as nvidia-smi reports them:
               launches, timed with CUDA events), the bound from the published
               H100 SXM peaks; the redesigned kernels (the streamed-weight
               resample in both directions, the write-accumulate forward and
-              backward, the inline read backward) again at B = 64, 256 and
-              1024 beside their yardsticks; the infer latency for 1 and 64
+              backward, the inline read, write and read backward) again at
+              B = 1 (the demo's request), 64, 256 and 1024 beside their
+              yardsticks; the infer latency for 1 and 64
               canvases; the train step (median of 10, host clock, each
               ending in a synchronize) through each path's kernels and
               through the plain path.
@@ -60,6 +64,7 @@ a temporary directory that is removed.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -98,9 +103,10 @@ PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
 GRAD_TOL = 1e-4         # train step 0, kernels vs plain path
 MIN_ACCURACY = 0.9      # the bar of the JAX package's shipped-model test
 BATCH = 64              # the serving bucket of the 60-canvas request
-SWEEP_BATCHES = (BATCH, 256, 1024)   # phase 6's redesigned kernels
+SWEEP_BATCHES = (1, BATCH, 256, 1024)   # phase 6's redesigned kernels
 SWEPT = ("pallas_attention_read", "pallas_attention_write",
          "fused_write_accumulate", "fused_write_accumulate_bwd",
+         "inline_attention_read", "inline_write_accumulate",
          "inline_attention_read_bwd")
 CS, WS = 50, 28
 # steps of the main path's training run: the JAX package at this config on
@@ -159,6 +165,17 @@ def expect_launches(before: dict, want: dict, what: str) -> None:
     expected = {k: want.get(k, 0) for k in now}
     if moved != expected:
         fail(f"{what} launched {moved}, expected {expected}")
+
+
+def digest(arrays) -> str:
+    """A short hash of the arrays' bytes: two runs print the same digest
+    when every value is the same bit for bit."""
+    h = hashlib.sha256()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
 
 
 def scalars(b: int, gen: torch.Generator):
@@ -430,7 +447,8 @@ def check_serve(impl: str, params, canvases, truth, card_line: str):
     say("serve", card_line, f"st_impl={impl} "
         f"requests={[len(r) for r in requests]} launches={serve_launches} "
         f"accuracy={accuracy:.4f} recon_vs_plain_max_abs={path_err:.3g} "
-        f"(tol {PATH_TOL})")
+        f"(tol {PATH_TOL}) reconstructions_sha256="
+        f"{digest(r for got in served for r in got[2])}")
     return wrapper
 
 
@@ -501,7 +519,7 @@ def check_train(config, state0, images, digits, card_line: str) -> dict:
         f"{seconds:.2f} s, launches={main_launches}, loss "
         f"{losses[0]:.3f} -> {losses[-1]:.3f}, reconstruction loss mean of "
         f"first 5 {first5:.3f}, last 5 {last5:.3f}; every parameter leaf "
-        "moved")
+        f"moved; params_sha256={digest(tree_leaves(state.params))}")
 
     out = make_eval_step(config)(state.params, images, digits, state.step,
                                  generator=step_generator(0, state.step,
@@ -670,9 +688,9 @@ def main() -> None:
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
             f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} B, {flops} FLOP)")
     # the redesigned kernels (the streamed-weight resample in both
-    # directions, the write-accumulate forward and backward, the inline read
-    # backward) at B = 64, 256 and 1024, each beside its library chain and
-    # its bound
+    # directions, the write-accumulate forward and backward, the inline read,
+    # write and read backward) at B = 1, 64, 256 and 1024, each beside its
+    # library chain and its bound
     for b in SWEEP_BATCHES:
         db = kernel_inputs(b, seed=2000 + b)
         eb = core_inputs(db, seed=3000 + b)

@@ -15,7 +15,13 @@ graphs of back-to-back launches, timed with CUDA events) of:
 - the write-accumulate backward of kernels/st_fused.py and the inline read
   backward of kernels/st_inline.py, with clusters of 1, 2, 4 and 8 CTAs per
   image (cluster.MAX_CLUSTER, with no limit from the SM count; the wrappers
-  take the largest power of two that keeps one CTA per SM).
+  take the largest power of two that keeps one CTA per SM);
+- the inline read and write forward of kernels/st_inline.py, with
+  st_inline.FILL_BLOCKS at 132, 264, 528, 1056 and 4224 (1 to 32 blocks per
+  SM; the band size follows), each with the input read through the
+  read-only cache and staged in shared memory (st_inline.STAGE_ITEMS set so
+  that no launch or every launch stages; the wrappers stage from 4 items
+  per thread).
 
 Prints the geometry each setting gives. Every launch is first held against
 the plain version (max abs diff 1e-5 on the matrix outputs, 1e-4 x max(1,
@@ -39,11 +45,17 @@ from air_tpu_torch.kernels import (cluster, st_fused, st_inline,  # noqa: E402
 BATCHES = (1, 64, 256, 1024)
 FILLS = (132, 264, 528)
 CLUSTERS = (1, 2, 4, 8)
+FWD_FILLS = (132, 264, 528, 1056, 4224)
 CS, WS = smoke.CS, smoke.WS
 ROW_SPLIT = {
     "pallas_attention_read": lambda b: st_pallas.geometry(b, WS, WS, CS, CS),
     "pallas_attention_write": lambda b: st_pallas.geometry(b, CS, CS, WS, WS),
     "fused_write_accumulate": lambda b: st_fused.geometry(b, CS, WS),
+}
+TWO_TAP = {
+    "inline_attention_read": lambda b: st_inline.fwd_geometry(b, CS, WS, ""),
+    "inline_write_accumulate":
+        lambda b: st_inline.fwd_geometry(b, WS, CS, ""),
 }
 CLUSTERED = {
     "fused_write_accumulate_bwd": lambda b: st_fused.bwd_geometry(b, CS, WS),
@@ -83,6 +95,26 @@ def main() -> None:
                     f"fill {fill} (groups {geo.groups}, rows {geo.rows}, "
                     f"threads {geo.threads}, blocks {b * geo.groups}): "
                     f"ms={ms:.5f}")
+            print("; ".join(parts), flush=True)
+        for name, geometry in TWO_TAP.items():
+            geo = geometry(b)
+            parts = [f"{name} B={b}: library_ms={lib.ms(name):.5f} "
+                     f"(default fill {st_inline.FILL_BLOCKS}, stage "
+                     f"{int(geo.stage)})"]
+            for fill in FWD_FILLS:
+                for stage in (False, True):
+                    default = st_inline.FILL_BLOCKS, st_inline.STAGE_ITEMS
+                    st_inline.FILL_BLOCKS = fill
+                    st_inline.STAGE_ITEMS = 0 if stage else 1 << 30
+                    try:
+                        geo = geometry(b)
+                        ms = timed(name, d, e)
+                    finally:
+                        st_inline.FILL_BLOCKS, st_inline.STAGE_ITEMS = default
+                    parts.append(
+                        f"fill {fill} stage {int(stage)} (bands {geo.bands}, "
+                        f"rows {geo.rows}, threads {geo.threads}, blocks "
+                        f"{b * geo.bands}): ms={ms:.5f}")
             print("; ".join(parts), flush=True)
         for name, geometry in CLUSTERED.items():
             parts = [f"{name} B={b}: library_ms={lib.ms(name):.5f} "

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from air_tpu_torch.kernels import cluster, st_inline
+from air_tpu_torch.kernels import build, cluster, st_inline
 from air_tpu_torch.ops.transformer import (_axis_weight_matrix, _linspace,
                                            _pixel_coords, attention_read,
                                            attention_write)
@@ -351,6 +351,241 @@ def test_two_tap_rows_are_the_dense_hat_rows(in_dim):
         pv = torch.tensor(v, dtype=torch.float32)
         want = torch.clamp(1.0 - torch.abs(pv - j), min=0.0)
         assert torch.equal(_two_tap_row(pv, in_dim), want), float(v)
+
+
+def _fwd_outputs(geo, n):
+    """How often the forward kernels' blocks of one image write each output
+    of [n, n], mirroring st_inline.cu:two_tap_band: block ``band`` owns rows
+    [band * rows, ...), thread t its items t, t + threads, ..., item ``it``
+    the outputs (i, l .. l + vec - 1) with i = it // (n / vec),
+    l = (it % (n / vec)) * vec."""
+    counts = np.zeros((n, n), dtype=np.int64)
+    per_row = n // geo.vec
+    for band in range(geo.bands):
+        r0 = band * geo.rows
+        rb = min(geo.rows, n - r0)
+        for t in range(geo.threads):
+            for it in range(t, rb * per_row, geo.threads):
+                i, l = it // per_row, (it % per_row) * geo.vec
+                counts[r0 + i, l:l + geo.vec] += 1
+    return counts
+
+
+# STAGE_ITEMS as the wrappers take it, and forcing every launch to stage
+# or none (as scripts/sweep_st_geometry.py and the card test do)
+ALWAYS, NEVER = 0, 1 << 30
+
+
+@pytest.mark.parametrize("stage_items", [None, ALWAYS, NEVER])
+@pytest.mark.parametrize("direction", ["read", "write"])
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("b", GEOMETRY_BATCHES)
+def test_forward_launch_geometry(b, cs, ws, direction, stage_items,
+                                 monkeypatch):
+    """The forward kernels' bands: FILL_BLOCKS blocks where the output rows
+    allow, bands that cover the output rows once, every output written by
+    exactly one thread item, float2 items where the width is even, the
+    input staged where a thread loops over STAGE_ITEMS items or more, the
+    block's taps (and, staged, the whole input) within the card's shared
+    memory, the bulk copy where the input is a multiple of 16 bytes."""
+    if stage_items is not None:
+        monkeypatch.setattr(st_inline, "STAGE_ITEMS", stage_items)
+    in_dim, n = (cs, ws) if direction == "read" else (ws, cs)
+    geo = st_inline.fwd_geometry(b, in_dim, n, direction)
+    items = geo.rows * n // geo.vec
+    stage = -(-items // geo.threads) >= st_inline.STAGE_ITEMS
+    assert b * geo.bands >= min(st_inline.FILL_BLOCKS, b * n)
+    assert geo.bands * geo.rows >= n > (geo.bands - 1) * geo.rows >= 0
+    assert geo.vec == (2 if n % 2 == 0 else 1)
+    assert geo.threads % 32 == 0
+    assert 32 <= geo.threads <= st_inline.MAX_FWD_THREADS
+    assert geo.threads >= min(st_inline.MAX_FWD_THREADS,
+                              geo.rows * n // geo.vec)
+    assert geo.smem_bytes == 4 * (4 * (geo.rows + n)
+                                  + (in_dim * in_dim if stage else 0))
+    assert geo.smem_bytes <= build.MAX_SMEM_BYTES
+    assert geo.stage == stage
+    assert geo.bulk == (stage and (cs, ws) != (21, 7))
+    np.testing.assert_array_equal(_fwd_outputs(geo, n), 1)
+
+
+def test_forward_refuses_a_block_that_does_not_fit(monkeypatch):
+    """Off the CPU the forward wrappers compute their geometry before they
+    build or launch anything: staged, a 250 x 250 input (250 KB) does not
+    fit one block's shared memory."""
+    monkeypatch.setattr(st_inline, "STAGE_ITEMS", ALWAYS)
+    b, big, small, dev = 1, 250, 28, "meta"
+    s = torch.empty((b,), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.attention_read_fwd(torch.empty((b, big, big), device=dev),
+                                     s, s, s, s, small)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.write_accumulate_fwd(
+            torch.empty((b, small, small), device=dev),
+            torch.empty((b, big, big), device=dev), s, s, s, s, s)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.fwd_geometry(b, big, small, "read")
+    monkeypatch.setattr(st_inline, "STAGE_ITEMS", NEVER)
+    assert st_inline.fwd_geometry(b, big, small, "read").smem_bytes < 1024
+
+
+def _clamped_taps(p, in_dim):
+    """A hat row as the forward kernels keep it (st_inline.cu:two_taps), all
+    in float32: (j, w0, w1), the row being w0 at column j, w1 at j + 1 and 0
+    elsewhere; the taps floor(p) and floor(p) + 1 where they lie in
+    [0, in_dim), weighted relu(1 - |p - j|) with fmaxf's NaN rule, and j the
+    first tap clamped into [0, in_dim - 2] (0 for a NaN p)."""
+    f = float(torch.floor(p))
+    j = 0 if f != f else int(min(max(f, 0.0), in_dim - 2))
+    w = [torch.zeros((), dtype=torch.float32) for _ in range(2)]
+    for tap in (0, 1):
+        jf = f + tap
+        if 0 <= jf < in_dim:
+            w[int(jf) - j] = torch.fmax(1.0 - torch.abs(p - jf),
+                                        torch.zeros(()))
+    return j, w[0], w[1]
+
+
+def _tap_row(p, in_dim):
+    j, w0, w1 = _clamped_taps(p, in_dim)
+    assert 0 <= j <= in_dim - 2
+    row = torch.zeros(in_dim, dtype=torch.float32)
+    row[j], row[j + 1] = w0, w1
+    return row
+
+
+@pytest.mark.parametrize("out_dim", [28, 27])
+@pytest.mark.parametrize("in_dim", [50, 28, 21])
+def test_forward_taps_are_the_dense_hat_rows(in_dim, out_dim):
+    """The forward kernels' (j, w0, w1) give the dense hat row bit for bit:
+    rows of _axis_weight_matrix at scales of both signs and shifts that push
+    rows off either edge, infinite and huge scales (rows at +-inf, +-1e30 x
+    kpix and, with an odd out_dim, a NaN middle row) and NaN shifts; and
+    single positions on and one ulp beside integers, at the edges and
+    outside the image, NaN, +-inf and +-1e30. Where p is NaN the plain
+    version's row is NaN and the kernels' row is 0, as their dense chains'
+    fmaxf gave before."""
+    inf, nan = float("inf"), float("nan")
+    a = torch.tensor([-2.5, -1.0, -0.3, 0.0, 0.3, 1.0, 2.5, 10.0, inf, -inf,
+                      1e30, -1e30, 0.5], dtype=torch.float32)
+    c = torch.tensor([0.1, -0.9, 0.7, -0.2, 1.3, 0.0, -1.6, -3.0, 0.0, 0.2,
+                      0.0, 0.5, nan], dtype=torch.float32)
+    dense = _axis_weight_matrix(a, c, out_dim, in_dim)
+    p = _pixel_coords(a[:, None] * _linspace(out_dim, "cpu")[None, :]
+                      + c[:, None], in_dim)
+    assert bool(torch.isnan(p).any()) and bool(torch.isinf(p).any())
+    for b in range(len(a)):
+        for i in range(out_dim):
+            row = dense[b, i]
+            assert bool(torch.isnan(row).all()) == bool(torch.isnan(p[b, i]))
+            assert torch.equal(_tap_row(p[b, i], in_dim),
+                               torch.nan_to_num(row, nan=0.0))
+    f32 = np.float32
+    points = [f32(v) for v in (-3.0, -1.0, -0.5, 0.0, 0.5, 1.0, 7.0,
+                               in_dim - 2, in_dim - 1.5, in_dim - 1, in_dim,
+                               in_dim + 0.5)]
+    points += [np.nextafter(v, f32(d)) for v in points
+               for d in (-np.inf, np.inf)]
+    points += [f32(v) for v in (np.nan, np.inf, -np.inf, 1e30, -1e30)]
+    j = torch.arange(in_dim, dtype=torch.float32)
+    for v in points:
+        pv = torch.tensor(v, dtype=torch.float32)
+        want = torch.clamp(1.0 - torch.abs(pv - j), min=0.0)
+        assert torch.equal(_tap_row(pv, in_dim),
+                           torch.nan_to_num(want, nan=0.0)), float(v)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 10, 28])
+def test_band_taps_lie_between_its_end_rows(rows):
+    """What the staged forward path relies on: positions are monotone in the
+    row index, so every tap with a non-zero weight of a band of rows lies in
+    X's rows [min(j_first, j_last), max(j_first, j_last) + 2) of the band's
+    end rows, at scales of both signs and shifts off either edge."""
+    in_dim, out_dim = 50, 28
+    rng = np.random.default_rng(rows)
+    a = torch.from_numpy(np.concatenate([
+        rng.uniform(-3.0, 3.0, 40), [0.0, 1e-7, -1e-7, 10.0, -10.0]]).astype(
+            np.float32))
+    c = torch.from_numpy(rng.uniform(-2.5, 2.5, len(a)).astype(np.float32))
+    p = _pixel_coords(a[:, None] * _linspace(out_dim, "cpu")[None, :]
+                      + c[:, None], in_dim)
+    for b in range(len(a)):
+        for r0 in range(0, out_dim, rows):
+            band = range(r0, min(out_dim, r0 + rows))
+            ends = [_clamped_taps(p[b, i], in_dim)[0]
+                    for i in (band[0], band[-1])]
+            lo, hi = min(ends), max(ends) + 2
+            for i in band:
+                j, w0, w1 = _clamped_taps(p[b, i], in_dim)
+                assert lo <= j <= hi - 2 or float(w0) == float(w1) == 0.0
+
+
+def _edge_scalars(d):
+    """Overwrite the first entries of (s, x, y) with scales and shifts that
+    push rows off both edges and the write's largest magnification (s 0.1),
+    as many as the batch holds."""
+    edges = np.array([[0.1, -1.0, 1.0], [0.1, 1.0, -1.0], [1.0, 1.0, -1.0],
+                      [1.0, -1.0, 1.0], [1.0, 0.0, 0.0], [0.1, 0.0, 0.0]],
+                     dtype=np.float32)
+    k = min(len(d["s"]), len(edges))
+    for col, name in enumerate(("s", "x", "y")):
+        d[name][:k] = edges[:k, col]
+    return d
+
+
+@pytest.mark.gpu
+def test_forward_kernels_match_plain_on_the_card(monkeypatch):
+    """Kernels 1 and 2 against their plain versions at B = 1, 7, 64 and 256
+    on every card shape ((21, 7) takes float2-less items and the 4-byte
+    copies, the others compile-time or run-time sizes), with rows off both
+    edges and s = 0.1, read through the cache and staged, and with inputs
+    at an odd float offset (no float2, no bulk copy). One launch per call;
+    the input canvas is left as it was; a geometry the kernel cannot run is
+    refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    for stage in (NEVER, ALWAYS):
+        monkeypatch.setattr(st_inline, "STAGE_ITEMS", stage)
+        for b in CARD_BATCHES:
+            for cs, ws in CARD_SHAPES:
+                d = _torch(_edge_scalars(_inputs(b, cs, ws, seed=70 + b)),
+                           "cuda")
+                read_s, write_s = _scalar_inputs(d)
+                canvas = d["canvas"].reshape(b, cs, cs)
+                windows = d["windows"].reshape(b, ws, ws)
+                shifted = {k: torch.cat([torch.zeros(1, device="cuda"),
+                                         v.flatten()])[1:].view(v.shape)
+                           for k, v in (("img", d["images"]),
+                                        ("canvas", canvas),
+                                        ("win", windows))}
+                for img, can, win in ((d["images"], canvas, windows),
+                                      (shifted["img"], shifted["canvas"],
+                                       shifted["win"])):
+                    kept = can.clone()
+                    st_inline.reset_launches()
+                    got_r = st_inline.attention_read_fwd(img, *read_s, ws)
+                    got_w = st_inline.write_accumulate_fwd(
+                        can, win, *write_s, d["coeff"])
+                    torch.cuda.synchronize()
+                    assert st_inline.LAUNCHES["inline_attention_read"] == 1
+                    assert st_inline.LAUNCHES["inline_write_accumulate"] == 1
+                    torch.testing.assert_close(
+                        got_r, st_inline.attention_read_fwd_plain(
+                            img, *read_s, ws), **TOL)
+                    torch.testing.assert_close(
+                        got_w, st_inline.write_accumulate_fwd_plain(
+                            can, win, *write_s, d["coeff"]), **TOL)
+                    assert torch.equal(can, kept), (stage, b, cs, ws)
+    # threads beyond the kernel's __launch_bounds__: refused, nothing runs
+    d = _torch(_inputs(1, 50, 28, seed=1), "cuda")
+    out = torch.empty((1, 28, 28), device="cuda")
+    geo = st_inline.fwd_geometry(1, 50, 28, "read")
+    args = list(st_inline._fwd_launch_args(geo, d["images"], out))
+    args[2] = 2 * st_inline.MAX_FWD_THREADS
+    with pytest.raises(RuntimeError, match="launch failed"):
+        build.launch(st_inline._lib().st_inline_read, d["images"].device,
+                     d["images"], d["s"], d["y"], d["s"], d["x"], out, 1, 50,
+                     28, *args)
 
 
 @pytest.mark.gpu
