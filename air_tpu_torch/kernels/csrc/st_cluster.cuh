@@ -1,5 +1,7 @@
 // Shared pieces of the two cluster backward kernels for Hopper (sm_90a):
 // st_fused.cu:st_wmac_bwd_kernel and st_inline.cu:st_read_bwd_kernel.
+// st_inline.cu:st_write_bwd_kernel, one CTA per image, takes Split and
+// lane_tree_sums from here.
 //
 // Both need, for one image, two intermediates (gwx and tmp) whole: every row
 // of an output sums over all of their rows. So each image gets a thread-block
@@ -42,6 +44,7 @@ constexpr int kTileCols = 4;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxCluster = 8;
 constexpr int kLanes = 256;   // the block_sum being reproduced: 256 threads
+constexpr int kMaxSmemBytes = 232448;   // a block's shared memory on an H100
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int odd(int n) { return n | 1; }
@@ -168,8 +171,10 @@ __device__ __forceinline__ void tile_product(const float* a, int a_rs,
 
 // The K sums a 256-thread block_sum gives, K times, when thread v holds
 // lane(v, x)'s x[0 .. K): the xor-shuffle tree within each warp of 32 lanes,
-// then the 8 warps' sums added in order from 0.0f. lanes_s holds K * kLanes
-// floats, red_s K * kLanes / 32. Thread 0 gets the sums in `total`.
+// then the 8 warps' sums added in order from 0.0f. Thread t computes the
+// virtual lanes t, t + blockDim.x, ...; warp w reduces row w of every sum at
+// once (K independent trees). lanes_s holds K * kLanes floats, red_s
+// K * kLanes / 32. Thread 0 gets the sums in `total`.
 template <int K, typename Lane>
 __device__ void lane_tree_sums(Lane lane, float* lanes_s, float* red_s,
                                float (&total)[K]) {
@@ -182,20 +187,36 @@ __device__ void lane_tree_sums(Lane lane, float* lanes_s, float* red_s,
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane_id = threadIdx.x & 31;
   const int n_warps = static_cast<int>(blockDim.x) >> 5;
-  for (int w = warp; w < K * kLanes / 32; w += n_warps) {
-    float x = lanes_s[w * 32 + lane_id];
+  for (int w = warp; w < kLanes / 32; w += n_warps) {
+    float x[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[k] = lanes_s[k * kLanes + w * 32 + lane_id];
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        x[k] = __fadd_rn(x[k], __shfl_xor_sync(0xffffffffu, x[k], off));
+      }
     }
-    if (lane_id == 0) red_s[w] = x;
+    if (lane_id == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red_s[k * kLanes / 32 + w] = x[k];
+    }
   }
   __syncthreads();
+  // thread 0 loads every warp sum before the adds, so only the adds wait on
+  // each other
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    total[k] = 0.0f;
-    if (threadIdx.x == 0) {
+  for (int k = 0; k < K; ++k) total[k] = 0.0f;
+  if (threadIdx.x == 0) {
+    float r[K * kLanes / 32];
+#pragma unroll
+    for (int i = 0; i < K * kLanes / 32; ++i) r[i] = red_s[i];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
       for (int w = 0; w < kLanes / 32; ++w) {
-        total[k] = __fadd_rn(total[k], red_s[k * kLanes / 32 + w]);
+        total[k] = __fadd_rn(total[k], r[k * kLanes / 32 + w]);
       }
     }
   }
@@ -203,7 +224,8 @@ __device__ void lane_tree_sums(Lane lane, float* lanes_s, float* red_s,
 
 // What the launchers check of the geometry the wrapper passes: n rows of the
 // intermediates in groups of `rows` and n_out rows of the separately split
-// output in groups of `out_rows`, even and covering every row.
+// output in groups of `out_rows`, even and covering every row; a CTA within
+// the card's shared memory.
 inline bool geometry_ok(int n, int n_out, int cluster, int rows, int out_rows,
                         int threads, int smem_bytes, int smem_floats) {
   return cluster >= 1 && cluster <= kMaxCluster && rows >= 2 &&
@@ -211,11 +233,15 @@ inline bool geometry_ok(int n, int n_out, int cluster, int rows, int out_rows,
          out_rows >= 2 && out_rows % 2 == 0 && cluster * out_rows >= n_out &&
          threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
          static_cast<size_t>(smem_floats) * sizeof(float) <=
-             static_cast<size_t>(smem_bytes);
+             static_cast<size_t>(smem_bytes) &&
+         smem_bytes <= kMaxSmemBytes;
 }
 
 // Launch `kernel` on batch * cluster CTAs in clusters of `cluster`; returns
-// the launch's error (the shared-memory attribute call's first).
+// the launch's error (the shared-memory attribute call's first). A cluster of
+// one CTA is launched without the cluster attribute, which measured faster
+// on an H100 (PERF.md); a CTA launched so is a cluster of one to the cluster
+// barriers and map_shared_rank.
 template <typename Kernel, typename... Args>
 cudaError_t launch_clusters(Kernel kernel, int batch, int cluster,
                             int threads, int smem_bytes, cudaStream_t stream,
@@ -236,7 +262,7 @@ cudaError_t launch_clusters(Kernel kernel, int batch, int cluster,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
-  config.numAttrs = 1;
+  config.numAttrs = cluster > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -74,13 +74,6 @@
 // bulk copy on an mbarrier where the range is 16-byte sized and aligned,
 // else 4-byte cp.async). Compile-time sizes for the model's (50, 28).
 //
-// Kernel 4 (write backward), right and simple first: one 256-thread block
-// per image that stages its inputs in shared memory, forms each hat weight
-// in registers from (a, c) and keeps every intermediate product in shared
-// memory; it forms dW only at the (at most two) taps j of each row where
-// the mask is non-zero, and reduces the scalars in a fixed order inside the
-// block.
-//
 // The read backward (st_read_bwd_kernel, on st_cluster.cuh) gives each
 // image a cluster of 2 CTAs up to B = 66 (128 CTAs for 132 SMs at B = 64)
 // and 1 from B = 67 on (kernels/cluster.py:geometry; the kernel takes up to
@@ -107,6 +100,34 @@
 // loops unroll; other sizes take them at run time. At the model's shapes a
 // CTA needs 40.4 KB of shared memory; sizes that do not fit 227 KB are
 // refused by the wrapper and the launcher.
+//
+// The write backward (st_write_bwd_kernel) runs one CTA per image with a
+// plain launch (kernels/st_inline.py:write_bwd_geometry). It stages win and
+// g whole with bulk copies, as the read backward does, and runs every chain
+// over the taps alone. A hat matrix W [cs, ws] has at most two non-zero
+// weights per row; with the write's a = 1/s > 1 a column of it has them in
+// at most 4 rows. So the CTA forms, while win and g arrive, the rows'
+// positions and each column k's range [lo(k), hi(k)]: the least and the
+// greatest row whose taps (tap_column) include k. Then:
+//   gwx[i][k] = chain over l in [lo_x(k), hi_x(k)] of g[i][l] * hat(px_l, k),
+//   tmp[i][k] = fmaf(w1, win[j + 1][k], fmaf(w0, win[j][k], 0))  (two_taps),
+//   d_win[j][k] = coeff * chain over i in [lo_y(j), hi_y(j)] of
+//                 hat(py_i, j) * gwx[i][k],
+// each the dense chain's result bit for bit, for finite g and any positions,
+// monotone or not: a row inside the range that does not tap the column
+// weighs +0, and outside it the dense chain's accumulator is +0 and stays so
+// (the argument above). gwx runs beside tmp, then d_win beside the dp of
+// each row of Wy and Wx, on disjoint warps (st_cluster.cuh's Split), one
+// thread per row running the dW chains of its two taps side by side (the x
+// rows' 50-term chains over g and tmp are the longest work). The four axis
+// scalars and d_coeff = <tmp, gwx> are summed in the order of a 256-thread
+// block (st_cluster.cuh's lane_tree_sums: lane t's chain over t, t + 256,
+// ..., row-major for d_coeff; the xor-shuffle tree; the 8 warps in order),
+// the order of the one-block kernel this replaced, so every output keeps its
+// bits. An image's work is a chain of dependent phases, each of which runs
+// its items in one pass, so a second CTA per image shortens none of them:
+// clusters of 2 measured slower at every batch (PERF.md). At the model's
+// shapes a CTA needs 31,088 bytes of shared memory.
 
 #include <cuda_runtime.h>
 
@@ -114,8 +135,6 @@
 #include "st_resample.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // t_i of linspace(-1, 1, n): -1 * (1 - step) + 1 * step, step = i / (n - 1),
 // end point exact.
@@ -125,12 +144,17 @@ __device__ __forceinline__ float grid_t(int i, int n) {
   return __fadd_rn(-__fsub_rn(1.0f, step), step);
 }
 
-// Position p_i of output row i of a [out_dim, in_dim] hat matrix. kpix is
+// Position (a * t + c + 1) * kpix of the hat row at grid point t. kpix is
 // (in_dim - 1.001) / 2 rounded once to float by the launcher.
+__device__ __forceinline__ float hat_pos_at(float a, float c, float t,
+                                            float kpix) {
+  return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, t), c), 1.0f), kpix);
+}
+
+// Position p_i of output row i of a [out_dim, in_dim] hat matrix.
 __device__ __forceinline__ float hat_pos(float a, float c, int i, int out_dim,
                                          float kpix) {
-  const float t = grid_t(i, out_dim);
-  return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, t), c), 1.0f), kpix);
+  return hat_pos_at(a, c, grid_t(i, out_dim), kpix);
 }
 
 __device__ __forceinline__ float hat(float p, int j) {
@@ -329,39 +353,6 @@ __device__ __forceinline__ float tap_sign(float p, int j) {
   const float d = __fsub_rn(p, static_cast<float>(j));
   if (!(fabsf(d) < 1.0f)) return 0.0f;
   return d > 0.0f ? -1.0f : (d < 0.0f ? 1.0f : 0.0f);
-}
-
-// Sum of v over the block's threads in a fixed order: warp shuffles, then
-// the warps' sums in shared memory (red_s holds kThreads / 32 floats). Every
-// thread gets the total. Ends with a barrier, so red_s can be reused.
-__device__ float block_sum(float v, float* red_s) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red_s[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < kThreads / 32; ++w) total = __fadd_rn(total, red_s[w]);
-  __syncthreads();
-  return total;
-}
-
-// Scalar cotangents of one axis from its per-row dp (rows in dp_s), written
-// by thread 0: out_a = kpix * sum_i t_i dp_i, out_c = kpix * sum_i dp_i.
-__device__ void axis_scalars(const float* dp_s, int rows, float kpix,
-                             float* red_s, float* out_a, float* out_c) {
-  float ta = 0.0f, tc = 0.0f;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    ta = fmaf(grid_t(i, rows), dp_s[i], ta);
-    tc = __fadd_rn(tc, dp_s[i]);
-  }
-  ta = block_sum(ta, red_s);
-  tc = block_sum(tc, red_s);
-  if (threadIdx.x == 0) {
-    *out_a = __fmul_rn(kpix, ta);
-    *out_c = __fmul_rn(kpix, tc);
-  }
 }
 
 // One read-backward CTA's shared memory, offsets in floats, every region on
@@ -570,88 +561,285 @@ st_read_bwd_kernel(const float* __restrict__ img, const float* __restrict__ g,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One write-backward CTA's shared memory, offsets in floats, every region on
+// 16 bytes. Mirrored by kernels/st_inline.py:_write_bwd_smem_floats.
+struct WriteBwdLayout {
+  int win, g, gwx, tmp, t, py, px, range, dp, lanes, red, total;
+  __host__ __device__ WriteBwdLayout(int cs, int ws)
+      : win(0),
+        g(win + st_cluster::round4(ws * ws)),      // win  [ws, ws]
+        gwx(g + st_cluster::round4(cs * cs)),      // g    [cs, cs]
+        tmp(gwx + st_cluster::round4(cs * ws)),    // gwx  [cs, ws] = g @ Wx
+        t(tmp + st_cluster::round4(cs * ws)),      // tmp  [cs, ws] = Wy @ win
+        py(t + st_cluster::round4(cs)),            // the grid t_i of the rows
+        px(py + st_cluster::round4(cs)),           // row positions of Wy
+        range(px + st_cluster::round4(cs)),        // row positions of Wx
+        dp(range + 4 * ws),                        // int lo, hi [2][ws]
+        lanes(dp + st_cluster::round4(2 * cs)),    // dp of y rows, x rows
+        red(lanes + 5 * st_cluster::kLanes),       // the 5 reductions' lanes
+        total(red + 5 * st_cluster::kLanes / 32) {}   // their warps' sums
+};
+
+// The write backward's items (kernels/st_inline.py:_write_bwd_phases
+// mirrors them): gwx kGwxRows rows band + r * bands of one column, tmp one
+// row at kTmpCols columns q + c * qn, d_win one row at kDwinCols columns. At
+// the model's shapes gwx's 112 items and tmp's 100 run side by side on 256
+// threads, each ~4 range terms deep with 13 or 14 independent chains.
+constexpr int kGwxRows = 13, kTmpCols = 14, kDwinCols = 8;
+
+// kCs, kWs: the sizes fixed at compile time (the model's 50, 28), or 0 to
+// take them from the arguments. One CTA per image, blockIdx.x.
+template <int kCs, int kWs>
+__global__ void __launch_bounds__(st_cluster::kMaxThreads)
 st_write_bwd_kernel(const float* __restrict__ win, const float* __restrict__ g,
                     const float* __restrict__ ay, const float* __restrict__ cy,
                     const float* __restrict__ ax, const float* __restrict__ cx,
                     const float* __restrict__ coeff, float* __restrict__ d_win,
                     float* __restrict__ d_ay, float* __restrict__ d_cy,
                     float* __restrict__ d_ax, float* __restrict__ d_cx,
-                    float* __restrict__ d_coeff, int cs, int ws, float kpix) {
-  extern __shared__ float smem[];
-  float* win_s = smem;                // [ws, ws]
-  float* g_s = win_s + ws * ws;       // [cs, cs]
-  float* gwx_s = g_s + cs * cs;       // [cs, ws] = g @ Wx
-  float* tmp_s = gwx_s + cs * ws;     // [cs, ws] = Wy @ win
-  float* py_s = tmp_s + cs * ws;      // [cs] row positions of Wy
-  float* px_s = py_s + cs;            // [cs] row positions of Wx
-  float* dp_s = px_s + cs;            // [2 cs] dp of y rows, then x rows
-  float* red_s = dp_s + 2 * cs;       // [kThreads / 32]
+                    float* __restrict__ d_coeff, int cs_arg, int ws_arg,
+                    float kpix, int bulk) {
+  using namespace st_cluster;
+  const int cs = kCs ? kCs : cs_arg, ws = kWs ? kWs : ws_arg;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bar;
   const int b = blockIdx.x;
+  const WriteBwdLayout lay(cs, ws);
+  float* win_s = smem + lay.win;
+  float* g_s = smem + lay.g;
+  float* gwx_s = smem + lay.gwx;
+  float* tmp_s = smem + lay.tmp;
+  float* t_s = smem + lay.t;
+  float* py_s = smem + lay.py;
+  float* px_s = smem + lay.px;
+  int* lo_s = reinterpret_cast<int*>(smem + lay.range);   // y columns, x
+  int* hi_s = lo_s + 2 * ws;
+  float* dp_s = smem + lay.dp;
   const float* win_b = win + static_cast<size_t>(b) * ws * ws;
   const float* g_b = g + static_cast<size_t>(b) * cs * cs;
-  for (int idx = threadIdx.x; idx < ws * ws; idx += blockDim.x) {
-    win_s[idx] = win_b[idx];
+
+  // stage win and g; they arrive while the positions and ranges are formed
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      const uint32_t n_win = 4u * ws * ws, n_g = 4u * cs * cs;
+      st_resample::mbar_init(&bar);
+      st_resample::mbar_fence_init();
+      st_resample::mbar_expect_tx(&bar, n_win + n_g);
+      st_resample::bulk_copy(win_s, win_b, n_win, &bar);
+      st_resample::bulk_copy(g_s, g_b, n_g, &bar);
+    }
+  } else {
+    st_resample::copy4(win_s, win_b, ws * ws);
+    st_resample::copy4(g_s, g_b, cs * cs);
+    st_resample::copy4_commit();
   }
-  for (int idx = threadIdx.x; idx < cs * cs; idx += blockDim.x) {
-    g_s[idx] = g_b[idx];
-  }
-  for (int i = threadIdx.x; i < cs; i += blockDim.x) {
-    py_s[i] = hat_pos(ay[b], cy[b], i, cs, kpix);
-    px_s[i] = hat_pos(ax[b], cx[b], i, cs, kpix);
-  }
+  const float a_y = ay[b], c_y = cy[b], a_x = ax[b], c_x = cx[b];
   const float co = coeff[b];
-  __syncthreads();
-
-  // gwx, tmp, and each thread's share of d_coeff = <tmp, gwx> = <g, recon>
-  float dco = 0.0f;
-  for (int idx = threadIdx.x; idx < cs * ws; idx += blockDim.x) {
-    const int i = idx / ws, k = idx - i * ws;
-    float acc = 0.0f;
-    for (int l = 0; l < cs; ++l) acc = fmaf(g_s[i * cs + l], hat(px_s[l], k), acc);
-    gwx_s[idx] = acc;
-    const float p = py_s[i];
-    float t = 0.0f;
-    for (int j = 0; j < ws; ++j) t = fmaf(hat(p, j), win_s[j * ws + k], t);
-    tmp_s[idx] = t;
-    dco = fmaf(t, acc, dco);
+  for (int i = threadIdx.x; i < cs; i += blockDim.x) {
+    const float t = grid_t(i, cs);
+    t_s[i] = t;
+    py_s[i] = hat_pos_at(a_y, c_y, t, kpix);
+    px_s[i] = hat_pos_at(a_x, c_x, t, kpix);
+  }
+  for (int k = threadIdx.x; k < 2 * ws; k += blockDim.x) {
+    lo_s[k] = cs;
+    hi_s[k] = -1;
   }
   __syncthreads();
-
-  float* d_win_b = d_win + static_cast<size_t>(b) * ws * ws;
-  for (int idx = threadIdx.x; idx < ws * ws; idx += blockDim.x) {
-    const int j = idx / ws, k = idx - j * ws;
-    float acc = 0.0f;
-    for (int i = 0; i < cs; ++i) acc = fmaf(hat(py_s[i], j), gwx_s[i * ws + k], acc);
-    d_win_b[idx] = __fmul_rn(co, acc);
-  }
-  // dp of row r: y rows take dWy[i, j] = co * sum_k gwx[i, k] win[j, k],
-  // x rows take dWx[l, k] = co * sum_i g[i, l] tmp[i, k], at the two taps
+  // Column k's range [lo, hi]: the least and the greatest row whose taps
+  // (tap_column: none for a NaN, infinite or far-off position) include k,
+  // empty (lo > hi) where no row's do. A row outside it weighs +0 in column
+  // k. Integer min and max, so the order of the atomics does not matter.
   for (int r = threadIdx.x; r < 2 * cs; r += blockDim.x) {
     const bool y_axis = r < cs;
     const int i = y_axis ? r : r - cs;
     const float p = y_axis ? py_s[i] : px_s[i];
-    float dp = 0.0f;
     for (int tap = 0; tap < 2; ++tap) {
       int j;
-      if (!tap_column(p, tap, ws, &j)) continue;
-      const float sgn = tap_sign(p, j);
-      if (sgn == 0.0f) continue;
-      float dw = 0.0f;
-      if (y_axis) {
-        for (int k = 0; k < ws; ++k) dw = fmaf(gwx_s[i * ws + k], win_s[j * ws + k], dw);
-      } else {
-        for (int m = 0; m < cs; ++m) dw = fmaf(g_s[m * cs + i], tmp_s[m * ws + j], dw);
+      if (tap_column(p, tap, ws, &j)) {
+        atomicMin(lo_s + (y_axis ? 0 : ws) + j, i);
+        atomicMax(hi_s + (y_axis ? 0 : ws) + j, i);
       }
-      dp = __fadd_rn(dp, __fmul_rn(sgn, __fmul_rn(co, dw)));
     }
-    dp_s[r] = dp;
+  }
+  if (bulk) {
+    st_resample::mbar_wait(&bar, 0);
+  } else {
+    st_resample::copy4_wait<0>();
   }
   __syncthreads();
-  axis_scalars(dp_s, cs, kpix, red_s, d_ay + b, d_cy + b);
-  axis_scalars(dp_s + cs, cs, kpix, red_s, d_ax + b, d_cx + b);
-  dco = block_sum(dco, red_s);
-  if (threadIdx.x == 0) d_coeff[b] = dco;
+
+  // gwx = g @ Wx and tmp = Wy @ win side by side where they fit. gwx[i][k]
+  // is one chain over the rows l of column k's range, ascending, weighted
+  // hat(px_l, k); tmp[i][k] the two taps of row i of Wy.
+  const int bands = cdiv(cs, kGwxRows), tq = cdiv(ws, kTmpCols);
+  const Split one(blockDim.x, bands * ws, cs * tq);
+  int me = static_cast<int>(threadIdx.x) - one.t0[0];
+  for (int it = me; me >= 0 && me < one.nt[0] && it < bands * ws;
+       it += one.nt[0]) {
+    const int band = it / ws, k = it - band * ws;
+    const int lo = lo_s[ws + k], hi = hi_s[ws + k];
+    int row[kGwxRows];
+    float acc[kGwxRows];
+#pragma unroll
+    for (int r = 0; r < kGwxRows; ++r) {
+      row[r] = min(band + r * bands, cs - 1) * cs;
+      acc[r] = 0.0f;
+    }
+    for (int l = lo; l <= hi; ++l) {
+      const float w = hat(px_s[l], k);
+#pragma unroll
+      for (int r = 0; r < kGwxRows; ++r) {
+        acc[r] = fmaf(g_s[row[r] + l], w, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kGwxRows; ++r) {
+      const int i = band + r * bands;
+      if (i < cs) gwx_s[i * ws + k] = acc[r];
+    }
+  }
+  me = static_cast<int>(threadIdx.x) - one.t0[1];
+  for (int it = me; me >= 0 && me < one.nt[1] && it < cs * tq;
+       it += one.nt[1]) {
+    const int i = it / tq, q = it - i * tq;
+    const Tap t = two_taps(py_s[i], ws);
+    const float* r0 = win_s + t.j * ws;
+    const float* r1 = r0 + ws;
+    float* row = tmp_s + i * ws;
+#pragma unroll
+    for (int c = 0; c < kTmpCols; ++c) {
+      const int k = q + c * tq;
+      if (k < ws) row[k] = fmaf(t.w1, r1[k], fmaf(t.w0, r0[k], 0.0f));
+    }
+  }
+  __syncthreads();
+
+  // d_win[j][k] = coeff * sum_i Wy[i][j] gwx[i][k]: one chain over the rows
+  // i of column j's range of Wy, ascending, at kDwinCols columns; beside it
+  // on other warps the dp of every row, one thread per (axis, row) running
+  // the dW chains of both taps side by side, y rows and x rows on warps of
+  // their own (so no warp runs both chain lengths one after the other):
+  // y rows dWy[i, j] = sum_k gwx[i, k] win[j, k], x rows
+  // dWx[l, j] = sum_m g[m, l] tmp[m, j]; then
+  // dp_i = sum over the taps of -sign(p_i - j) * (coeff * dW[i, j]).
+  const int dq = cdiv(ws, kDwinCols), yspan = round32(cs);
+  const Split two(blockDim.x, ws * dq, 2 * yspan);
+  float* d_win_b = d_win + static_cast<size_t>(b) * ws * ws;
+  me = static_cast<int>(threadIdx.x) - two.t0[0];
+  for (int it = me; me >= 0 && me < two.nt[0] && it < ws * dq;
+       it += two.nt[0]) {
+    const int j = it / dq, q = it - j * dq;
+    const int lo = lo_s[j], hi = hi_s[j];
+    int col[kDwinCols];
+    float acc[kDwinCols];
+#pragma unroll
+    for (int c = 0; c < kDwinCols; ++c) {
+      col[c] = min(q + c * dq, ws - 1);
+      acc[c] = 0.0f;
+    }
+    for (int i = lo; i <= hi; ++i) {
+      const float w = hat(py_s[i], j);
+      const float* gr = gwx_s + i * ws;
+#pragma unroll
+      for (int c = 0; c < kDwinCols; ++c) acc[c] = fmaf(w, gr[col[c]], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < kDwinCols; ++c) {
+      const int k = q + c * dq;
+      if (k < ws) d_win_b[j * ws + k] = __fmul_rn(co, acc[c]);
+    }
+  }
+  me = static_cast<int>(threadIdx.x) - two.t0[1];
+  for (int item = me; me >= 0 && me < two.nt[1] && item < 2 * yspan;
+       item += two.nt[1]) {
+    const bool y_axis = item < yspan;
+    const int i = y_axis ? item : item - yspan;
+    if (i >= cs) continue;
+    const float p = y_axis ? py_s[i] : px_s[i];
+    int j[2];
+    float sgn[2];
+#pragma unroll
+    for (int tap = 0; tap < 2; ++tap) {
+      sgn[tap] = tap_column(p, tap, ws, &j[tap]) ? tap_sign(p, j[tap]) : 0.0f;
+      if (sgn[tap] == 0.0f) j[tap] = 0;   // a column to read; not used
+    }
+    float dw[2] = {0.0f, 0.0f};
+    if (y_axis) {
+      const float* gr = gwx_s + i * ws;
+      const float* w0 = win_s + j[0] * ws;
+      const float* w1 = win_s + j[1] * ws;
+      for (int k = 0; k < ws; ++k) {
+        dw[0] = fmaf(gr[k], w0[k], dw[0]);
+        dw[1] = fmaf(gr[k], w1[k], dw[1]);
+      }
+    } else {
+#pragma unroll 10
+      for (int m = 0; m < cs; ++m) {
+        const float v = g_s[m * cs + i];
+        dw[0] = fmaf(v, tmp_s[m * ws + j[0]], dw[0]);
+        dw[1] = fmaf(v, tmp_s[m * ws + j[1]], dw[1]);
+      }
+    }
+    float dp = 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 2; ++tap) {
+      if (sgn[tap] != 0.0f) {
+        dp = __fadd_rn(dp, __fmul_rn(sgn[tap], __fmul_rn(co, dw[tap])));
+      }
+    }
+    dp_s[(y_axis ? 0 : cs) + i] = dp;
+  }
+  __syncthreads();
+
+  // the five scalars, each in the order of a 256-thread block: d_a =
+  // kpix * sum_i t_i dp_i and d_c = kpix * sum_i dp_i for each axis (lane
+  // v's chains over rows v, v + 256, ...) and d_coeff = <tmp, gwx> (lane
+  // v's fmaf chain over the row-major elements v, v + 256, ...: the one-block
+  // kernel's thread v); the xor-shuffle tree in each warp and the 8 warps in
+  // order
+  float total[5];
+  lane_tree_sums<5>(
+      [&](int v, float (&x)[5]) {
+        for (int axis = 0; axis < 2; ++axis) {
+          const float* dp = dp_s + axis * cs;
+          float ta = 0.0f, tc = 0.0f;
+          for (int i = v; i < cs; i += kLanes) {
+            ta = fmaf(t_s[i], dp[i], ta);
+            tc = __fadd_rn(tc, dp[i]);
+          }
+          x[2 * axis] = ta;
+          x[2 * axis + 1] = tc;
+        }
+        float dco = 0.0f;
+        for (int idx = v; idx < cs * ws; idx += kLanes) {
+          dco = fmaf(tmp_s[idx], gwx_s[idx], dco);
+        }
+        x[4] = dco;
+      },
+      smem + lay.lanes, smem + lay.red, total);
+  if (threadIdx.x == 0) {
+    d_ay[b] = __fmul_rn(kpix, total[0]);
+    d_cy[b] = __fmul_rn(kpix, total[1]);
+    d_ax[b] = __fmul_rn(kpix, total[2]);
+    d_cx[b] = __fmul_rn(kpix, total[3]);
+    d_coeff[b] = total[4];
+  }
+}
+
+// What the write backward's launcher checks of the geometry the wrapper
+// passes (kernels/st_inline.py:write_bwd_geometry): threads in whole warps
+// within the kernel's bounds, a CTA's shared memory that holds the layout
+// and fits the card, and the bulk path only where win and g are each a
+// multiple of 16 bytes.
+inline bool write_bwd_geometry_ok(int cs, int ws, int threads, int smem_bytes,
+                                  int bulk) {
+  return cs >= 2 && ws >= 2 && threads >= 32 &&
+         threads <= st_cluster::kMaxThreads && threads % 32 == 0 &&
+         static_cast<size_t>(WriteBwdLayout(cs, ws).total) * sizeof(float) <=
+             static_cast<size_t>(smem_bytes) &&
+         smem_bytes <= st_cluster::kMaxSmemBytes &&
+         (bulk == 0 || (bulk == 1 && cs * cs % 4 == 0 && ws * ws % 4 == 0));
 }
 
 // Dynamic shared memory above 48 KB has to be allowed per kernel.
@@ -671,7 +859,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // outputs per item, 1 to stage X and 1 for the bulk-copy path; the read
 // backward that of read_bwd_geometry: CTAs per cluster, rows of gwx / tmp
 // per CTA, rows of d_img per CTA, threads, shared-memory bytes per CTA and 1
-// for the bulk-copy path), and the stream; it enqueues one kernel and
+// for the bulk-copy path; the write backward that of write_bwd_geometry:
+// threads, shared-memory bytes per CTA and 1 for the bulk-copy path), and
+// the stream; it enqueues one kernel and
 // returns cudaGetLastError() (0 = the launch was accepted), the error of the
 // shared-memory attribute call or of the cluster launch, or
 // cudaErrorInvalidValue for a geometry the kernel cannot run. The wrapper
@@ -753,15 +943,19 @@ extern "C" int st_inline_write_bwd(const float* win, const float* g,
                                    const float* coeff, float* d_win,
                                    float* d_ay, float* d_cy, float* d_ax,
                                    float* d_cx, float* d_coeff, int batch,
-                                   int cs, int ws, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(ws * ws + cs * cs + 2 * cs * ws +
-                                          4 * cs + kThreads / 32) *
-                      sizeof(float);
-  const cudaError_t err = allow_smem(st_write_bwd_kernel, smem);
+                                   int cs, int ws, int threads,
+                                   int smem_bytes, int bulk,
+                                   cudaStream_t stream) {
+  if (!write_bwd_geometry_ok(cs, ws, threads, smem_bytes, bulk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = cs == 50 && ws == 28 ? st_write_bwd_kernel<50, 28>
+                                           : st_write_bwd_kernel<0, 0>;
+  const cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float kpix = static_cast<float>((ws - 1.001) / 2.0);
-  st_write_bwd_kernel<<<batch, kThreads, smem, stream>>>(
+  kernel<<<batch, threads, smem_bytes, stream>>>(
       win, g, ay, cy, ax, cx, coeff, d_win, d_ay, d_cy, d_ax, d_cx, d_coeff,
-      cs, ws, kpix);
+      cs, ws, kpix, bulk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,8 +26,9 @@ kernel launch adds one to ``LAUNCHES[<name>]``, and nothing else does.
 The forward kernels run one block per (image, band of output rows);
 ``fwd_geometry`` computes the bands. The read backward runs a cluster of
 CTAs per image; ``read_bwd_geometry`` (``cluster.geometry``) computes its
-split. The launchers check what they are given, and the CPU tests reach the
-geometry here.
+split. The write backward runs one CTA per image; ``write_bwd_geometry``
+gives its threads and shared memory. The launchers check what they are
+given, and the CPU tests reach the geometry here.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def _lib() -> ctypes.CDLL:
     for fn, n_ptr, n_int in ((lib.st_inline_read, 6, 10),
                              (lib.st_inline_write, 8, 10),
                              (lib.st_inline_read_bwd, 11, 9),
-                             (lib.st_inline_write_bwd, 13, 3)):
+                             (lib.st_inline_write_bwd, 13, 6)):
         fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
     return lib
@@ -158,6 +159,58 @@ def _read_bwd_phases(rows: int, out_rows: int, cs: int) -> list:
     return [(cluster.tiles(rows, cs),),
             (cluster.tiles(out_rows, cs), 4 * rows)]
 
+
+# the write backward's items, as csrc/st_inline.cu takes them (kGwxRows,
+# kTmpCols, kDwinCols): gwx rows of one column, tmp and d_win columns of one
+# row
+GWX_ROWS, TMP_COLS, DWIN_COLS = 13, 14, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class WriteBwdGeometry:
+    """One launch of the write backward kernel: one CTA per image of
+    ``threads`` threads and ``smem_bytes`` of shared memory; ``bulk`` when
+    win and g are each a multiple of 16 bytes (the wrapper also needs
+    16-byte aligned pointers for the bulk copies)."""
+    threads: int
+    smem_bytes: int
+    bulk: bool
+
+
+def _write_bwd_smem_floats(cs: int, ws: int) -> int:
+    """Floats of one write-backward CTA's shared memory, as st_inline.cu's
+    WriteBwdLayout: win, g, gwx, tmp, the grid and the rows' positions, the
+    columns' row ranges, the dp of all rows, and the five scalar reductions'
+    lanes and warp sums; each region on 16 bytes."""
+    r4 = cluster.round4
+    return (r4(ws * ws) + r4(cs * cs) + 2 * r4(cs * ws) + 3 * r4(cs)
+            + 4 * ws + r4(2 * cs) + 5 * cluster.LANES
+            + 5 * cluster.LANES // 32)
+
+
+def write_bwd_geometry(cs: int, ws: int) -> WriteBwdGeometry:
+    """Launch geometry of the write backward kernel, one CTA per image (a
+    cluster of 2 measured slower at every batch, PERF.md): threads enough
+    for the wider of its two phases side by side, within
+    cluster.MAX_THREADS (a phase that does not fit runs its products one
+    after the other, each walking its items in a loop). Raises if a CTA does
+    not fit the card's shared memory."""
+    threads = min(cluster.MAX_THREADS,
+                  max(sum(32 * -(-c // 32) for c in phase)
+                      for phase in _write_bwd_phases(cs, ws)))
+    floats = _write_bwd_smem_floats(cs, ws)
+    build.check_smem("inline_write_accumulate_bwd", floats)
+    return WriteBwdGeometry(threads, 4 * floats,
+                            cs * cs % 4 == 0 and ws * ws % 4 == 0)
+
+
+def _write_bwd_phases(cs: int, ws: int) -> list:
+    """The write backward's products: gwx (columns by bands of GWX_ROWS
+    rows) beside tmp (rows by TMP_COLS columns), then d_win (rows by
+    DWIN_COLS columns) beside the dW chains and dp of the cs rows of Wy and
+    of Wx, each axis's rows on whole warps of their own."""
+    return [(-(-cs // GWX_ROWS) * ws, cs * -(-ws // TMP_COLS)),
+            (ws * -(-ws // DWIN_COLS), 2 * 32 * -(-cs // 32))]
 
 
 # -------------------- plain versions ----------------------------------------
@@ -288,12 +341,15 @@ def write_accumulate_bwd(windows, g, ay, cy, ax, cx, coeff):
     build.check("g", g, (b, cs, cs), windows.device)
     if windows.device.type == "cpu":
         return write_accumulate_bwd_plain(windows, g, ay, cy, ax, cx, coeff)
+    geo = write_bwd_geometry(cs, ws)
     windows, g, ay, cy, ax, cx, coeff = build.contiguous(
         windows, g, ay, cy, ax, cx, coeff)
     d_win = torch.empty_like(windows)
     d_s = torch.empty((5, b), dtype=torch.float32, device=windows.device)
+    bulk = geo.bulk and windows.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
     build.launch(_lib().st_inline_write_bwd, windows.device, windows, g,
-                 ay, cy, ax, cx, coeff, d_win, *d_s, b, cs, ws)
+                 ay, cy, ax, cx, coeff, d_win, *d_s, b, cs, ws, geo.threads,
+                 geo.smem_bytes, int(bulk))
     LAUNCHES["inline_write_accumulate_bwd"] += 1
     return (d_win, *d_s)
 

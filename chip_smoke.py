@@ -47,11 +47,11 @@ line with the card's name and power limit as nvidia-smi reports them:
   6. times    device time per launch of each kernel, its plain version and a
               PyTorch yardstick at B = 64 (CUDA graphs of back-to-back
               launches, timed with CUDA events), the bound from the published
-              H100 SXM peaks; the redesigned kernels (the streamed-weight
-              resample in both directions, the write-accumulate forward and
-              backward, the inline read, write and read backward) again at
-              B = 1 (the demo's request), 64, 256 and 1024 beside their
-              yardsticks; the infer latency for 1 and 64
+              H100 SXM peaks; every kernel (the streamed-weight resample in
+              both directions, the streamed-weight write-accumulate forward
+              and backward, the inline read, write, read backward and write
+              backward) again at B = 1 (the demo's request), 64, 256 and
+              1024 beside its yardstick; the infer latency for 1 and 64
               canvases; the train step (median of 10, host clock, each
               ending in a synchronize) through each path's kernels and
               through the plain path.
@@ -103,11 +103,11 @@ PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
 GRAD_TOL = 1e-4         # train step 0, kernels vs plain path
 MIN_ACCURACY = 0.9      # the bar of the JAX package's shipped-model test
 BATCH = 64              # the serving bucket of the 60-canvas request
-SWEEP_BATCHES = (1, BATCH, 256, 1024)   # phase 6's redesigned kernels
+SWEEP_BATCHES = (1, BATCH, 256, 1024)   # phase 6's kernels by batch
 SWEPT = ("pallas_attention_read", "pallas_attention_write",
          "fused_write_accumulate", "fused_write_accumulate_bwd",
          "inline_attention_read", "inline_write_accumulate",
-         "inline_attention_read_bwd")
+         "inline_attention_read_bwd", "inline_write_accumulate_bwd")
 CS, WS = 50, 28
 # steps of the main path's training run: the JAX package at this config on
 # the same 64 canvases lowers the mean reconstruction loss of the last 5
@@ -687,10 +687,10 @@ def main() -> None:
         say("times", card_line, f"{kname} B={BATCH}: ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
             f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} B, {flops} FLOP)")
-    # the redesigned kernels (the streamed-weight resample in both
-    # directions, the write-accumulate forward and backward, the inline read,
-    # write and read backward) at B = 1, 64, 256 and 1024, each beside its
-    # library chain and its bound
+    # every kernel (the streamed-weight resample in both directions, the
+    # streamed-weight write-accumulate forward and backward, the inline read,
+    # write, read backward and write backward) at B = 1, 64, 256 and 1024,
+    # each beside its library chain and its bound
     for b in SWEEP_BATCHES:
         db = kernel_inputs(b, seed=2000 + b)
         eb = core_inputs(db, seed=3000 + b)

@@ -588,12 +588,21 @@ def test_forward_kernels_match_plain_on_the_card(monkeypatch):
                      28, *args)
 
 
+def _shifted(t):
+    """``t``'s values at an odd float offset: neither 8- nor 16-byte
+    aligned, so no float2 item and no bulk copy."""
+    return torch.cat([torch.zeros(1, device=t.device),
+                      t.flatten()])[1:].view(t.shape)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_the_card(monkeypatch):
     """Build the CUDA kernels, launch each on the card and hold it against
     its plain version; every launch is counted. The read backward also at
     B = 1, 7, 64 and 256, cs 100 and the odd shape (21, 7) that takes its
-    4-byte copy path, and in clusters of 8."""
+    4-byte copy path, and in clusters of 8; the write backward at the same
+    batches and shapes with rows off both edges and s = 0.1, and at an odd
+    float offset. A geometry the write backward cannot run is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the card)")
     for b in (1, 7, 64):
@@ -661,3 +670,359 @@ def test_kernels_match_plain_on_the_card(monkeypatch):
             err = (gg - ww).abs() / ww.abs().clamp(min=1.0)
             assert float(err.max()) <= 1e-4, (b, cs, ws, most)
         assert st_inline.LAUNCHES["inline_attention_read_bwd"] == 1
+    # the write backward: inputs aligned and at an odd float offset (the
+    # 4-byte copies, as (21, 7) always takes)
+    for b in CARD_BATCHES:
+        for cs, ws in CARD_SHAPES:
+            d = _torch(_edge_scalars(_inputs(b, cs, ws, seed=80 + b)), "cuda")
+            g = torch.from_numpy(_cotangents(b, cs, ws, 80 + b)[1])
+            g = g.cuda().reshape(b, cs, cs)
+            _, write_s = _scalar_inputs(d)
+            win = d["windows"].reshape(b, ws, ws)
+            for w_in, g_in in ((win, g), (_shifted(win), _shifted(g))):
+                st_inline.reset_launches()
+                got = st_inline.write_accumulate_bwd(w_in, g_in, *write_s,
+                                                     d["coeff"])
+                torch.cuda.synchronize()
+                assert st_inline.LAUNCHES["inline_write_accumulate_bwd"] == 1
+                want = st_inline.write_accumulate_bwd_plain(
+                    w_in, g_in, *write_s, d["coeff"])
+                case = (b, cs, ws, w_in.data_ptr() % 16)
+                assert float((got[0] - want[0]).abs().max()) <= 1e-5, case
+                for gg, ww in zip(got[1:], want[1:]):
+                    err = (gg - ww).abs() / ww.abs().clamp(min=1.0)
+                    assert float(err.max()) <= 1e-4, case
+    # threads beyond the kernel's __launch_bounds__, or shared memory beyond
+    # the card's: refused, nothing runs
+    d = _torch(_inputs(1, 50, 28, seed=1), "cuda")
+    _, write_s = _scalar_inputs(d)
+    win, g = d["windows"].reshape(1, 28, 28), d["images"]
+    d_win, d_s = torch.empty_like(win), torch.empty((5, 1), device="cuda")
+    geo = st_inline.write_bwd_geometry(50, 28)
+    for threads, smem in ((2 * cluster.MAX_THREADS, geo.smem_bytes),
+                          (geo.threads, build.MAX_SMEM_BYTES + 16)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            build.launch(st_inline._lib().st_inline_write_bwd, win.device, win,
+                         g, *write_s, d["coeff"], d_win, *d_s, 1, 50, 28,
+                         threads, smem, 0)
+
+
+# -------------------- the write backward (kernel 4) --------------------------
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) on float32 tensors: the product exact in float64, the
+    sum rounded to float32 (through float64). A term whose weight is +0
+    leaves an accumulator other than -0 as it is, exactly as fmaf does,
+    which is what the chains below rely on."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tap_columns(p, in_dim):
+    """Columns of the two taps of each position, as st_inline.cu:tap_column
+    forms them: floorf(p) + tap compared in float32 before the cast, so a
+    NaN, an infinite or a far-off position has none. [..., 2] int64, -1
+    where the tap lies outside [0, in_dim)."""
+    jf = torch.floor(p)[..., None] + torch.tensor([0.0, 1.0])
+    ok = (jf >= 0) & (jf < in_dim)
+    return torch.where(ok, torch.nan_to_num(jf, nan=-1.0, posinf=-1.0,
+                                            neginf=-1.0), -1.0).long()
+
+
+def _column_ranges(p, in_dim):
+    """Each column's row range of the hat matrix with row positions p
+    [B, out], as the write backward forms it: the least and the greatest row
+    whose taps include the column; (out, -1) where no row's do."""
+    b, out_dim = p.shape
+    lo = torch.full((b, in_dim), out_dim, dtype=torch.long)
+    hi = torch.full((b, in_dim), -1, dtype=torch.long)
+    cols = _tap_columns(p, in_dim)
+    for i in range(out_dim):
+        for tap in (0, 1):
+            j = cols[:, i, tap]
+            for bb in torch.nonzero(j >= 0).flatten().tolist():
+                jj = int(j[bb])
+                lo[bb, jj] = min(int(lo[bb, jj]), i)
+                hi[bb, jj] = max(int(hi[bb, jj]), i)
+    return lo, hi
+
+
+def _write_scalars():
+    """(a, c) of one axis of the write (a = 1/s): the model's range of s
+    (0.1 to 1) with shifts that push rows off both edges, a <= 0, tiny a (one
+    column's range is every row), NaN and +-inf in either scalar."""
+    inf, nan = float("inf"), float("nan")
+    s = np.array([0.1, 0.1, 0.25, 0.5, 1.0, 1.0, 0.7], dtype=np.float32)
+    x = np.array([-1.0, 1.0, 0.3, -0.8, 1.0, -1.0, 0.0], dtype=np.float32)
+    a = list(1.0 / s) + [0.0, 1e-6, -1.0, -3.0, nan, 1.0, inf, -inf, 2.0]
+    c = list(-x / s) + [0.2, -0.1, 0.5, 0.0, 0.0, nan, 0.0, 0.1, inf]
+    return (torch.tensor(a, dtype=torch.float32),
+            torch.tensor(c, dtype=torch.float32))
+
+
+def _write_positions(a, c, out_dim, in_dim):
+    return _pixel_coords(a[:, None] * _linspace(out_dim, "cpu")[None, :]
+                         + c[:, None], in_dim)
+
+
+def _kernel_hat(p, in_dim):
+    """The kernels' dense hat matrix [B, out, in]: fmaxf(0, 1 - |p - j|),
+    0 where p is NaN."""
+    j = torch.arange(in_dim, dtype=torch.float32)
+    return torch.fmax(1.0 - torch.abs(p[..., None] - j), torch.zeros(()))
+
+
+@pytest.mark.parametrize("in_dim,out_dim", [(28, 50), (7, 21)])
+def test_column_ranges_hold_every_tapping_row(in_dim, out_dim):
+    """The write backward's column ranges against the non-zero rows of each
+    column of _axis_weight_matrix (rows [out] over columns [in]): every row
+    with a non-zero weight lies in its column's range, whose end rows tap
+    the column; NaN rows (the plain version's, where a position is NaN) tap
+    nothing. At the model's scales (a = 1/s >= 1, finite) positions advance
+    by at least (in - 1.001) / (out - 1) per row, so a range spans at
+    most 2 / that + 1 rows: 4 at the model's shapes (28, 50)."""
+    a, c = _write_scalars()
+    dense = _axis_weight_matrix(a, c, out_dim, in_dim)
+    p = _write_positions(a, c, out_dim, in_dim)
+    lo, hi = _column_ranges(p, in_dim)
+    cols = _tap_columns(p, in_dim)
+    most = int(2.0 / ((in_dim - 1.001) / (out_dim - 1))) + 1
+    assert most == 4 or (in_dim, out_dim) != (28, 50)
+    for b in range(len(a)):
+        for k in range(in_dim):
+            rows = torch.nonzero(torch.nan_to_num(dense[b, :, k], nan=0.0))
+            for i in rows.flatten().tolist():
+                assert lo[b, k] <= i <= hi[b, k], (b, k, i)
+            if lo[b, k] <= hi[b, k]:
+                for end in (int(lo[b, k]), int(hi[b, k])):
+                    assert k in cols[b, end].tolist(), (b, k, end)
+                if 1.0 <= float(a[b]) < float("inf"):
+                    assert hi[b, k] - lo[b, k] + 1 <= most, (b, k)
+            else:
+                assert not bool((cols[b] == k).any())
+    assert bool((lo > hi).all(1)[torch.isnan(a) | torch.isinf(a)].all())
+    tiny = int(torch.nonzero(a == 1e-6)[0])
+    assert int((hi[tiny] - lo[tiny] + 1).max()) == out_dim
+
+
+def _range_chain(w, x, lo, hi):
+    """out[b, r, k] = the fmaf chain over t in [lo[b, k], hi[b, k]],
+    ascending, of w[b, r, t] * x[b, t, k]; 0 where the range is empty (how
+    the write backward forms gwx over Wx's column ranges)."""
+    acc = torch.zeros(w.shape[0], w.shape[1], x.shape[2])
+    for t in range(w.shape[2]):
+        inside = ((lo <= t) & (t <= hi))[:, None, :]
+        acc = torch.where(inside, _fma(w[:, :, t, None], x[:, None, t, :],
+                                       acc), acc)
+    return acc
+
+
+def _dense_chain(w, x):
+    acc = torch.zeros(w.shape[0], w.shape[1], x.shape[2])
+    for t in range(w.shape[2]):
+        acc = _fma(w[:, :, t, None], x[:, None, t, :], acc)
+    return acc
+
+
+@pytest.mark.parametrize("cs,ws", [(50, 28), (21, 7)])
+def test_range_chains_are_the_dense_chains(cs, ws):
+    """The write backward's chains give the dense chains' bits on finite
+    inputs (signed, with exact zeros), over hat matrices at every scale of
+    _write_scalars: gwx = g @ Wx over Wx's column ranges, d_win's sum
+    Wy^T gwx over Wy's, and tmp = Wy @ win from the two taps of each row
+    (fmaf(w1, win[j + 1], fmaf(w0, win[j], 0)), st_inline.cu:two_taps)."""
+    ay, cy = _write_scalars()
+    ax, cx = ay.flip(0), cy.roll(3)
+    b = len(ay)
+    rng = np.random.default_rng(cs)
+    g = torch.from_numpy(rng.standard_normal((b, cs, cs)).astype(np.float32))
+    win = torch.from_numpy(rng.uniform(-1.0, 1.0, (b, ws, ws)).astype(
+        np.float32))
+    g[:, ::7, ::5] = 0.0
+    win[:, ::3, ::4] = 0.0
+    py = _write_positions(ay, cy, cs, ws)
+    px = _write_positions(ax, cx, cs, ws)
+    wy, wx = _kernel_hat(py, ws), _kernel_hat(px, ws)      # [B, cs, ws]
+    bits = lambda t: t.view(torch.int32)                   # noqa: E731
+    lo_x, hi_x = _column_ranges(px, ws)
+    gwx = _range_chain(g, wx, lo_x, hi_x)
+    assert torch.equal(bits(gwx), bits(_dense_chain(g, wx)))
+    # d_win[j, k] = sum_i Wy[i, j] gwx[i, k], over the range of Wy's column
+    # j: a range by output row
+    lo_y, hi_y = _column_ranges(py, ws)
+    d_win = torch.zeros(b, ws, ws)
+    for t in range(cs):
+        inside = ((lo_y <= t) & (t <= hi_y))[:, :, None]
+        d_win = torch.where(inside, _fma(wy[:, t, :, None], gwx[:, None, t, :],
+                                         d_win), d_win)
+    assert torch.equal(bits(d_win),
+                       bits(_dense_chain(wy.transpose(1, 2), gwx)))
+    tmp = torch.zeros(b, cs, ws)
+    for bb in range(b):
+        for i in range(cs):
+            j, w0, w1 = _clamped_taps(py[bb, i], ws)
+            tmp[bb, i] = _fma(w1, win[bb, j + 1], _fma(w0, win[bb, j],
+                                                       torch.zeros(ws)))
+    assert torch.equal(bits(tmp), bits(_dense_chain(wy, win)))
+
+
+def _write_bwd_outputs(geo, cs, ws):
+    """What one image's CTA stores, mirroring
+    st_inline.cu:st_write_bwd_kernel: how often it stores each element of
+    gwx and of tmp [cs, ws] (phase 1: items of GWX_ROWS rows band + r * bands
+    of one column k, and of one row by TMP_COLS columns q + c * qn), each
+    element of d_win [ws, ws] (phase 2: one row j by DWIN_COLS columns) and
+    each row's dp (axis, row), with the thread ranges of st_cluster.cuh's
+    Split."""
+    from tests.test_torch_st_fused import _split
+    gwx = np.zeros((cs, ws), dtype=np.int64)
+    tmp = np.zeros_like(gwx)
+    d_win = np.zeros((ws, ws), dtype=np.int64)
+    dp = np.zeros((2, cs), dtype=np.int64)
+    bands = -(-cs // st_inline.GWX_ROWS)
+    tq = -(-ws // st_inline.TMP_COLS)
+    (t0, nt0), (t1, nt1) = _split(geo.threads, bands * ws, cs * tq)
+    assert t0 + nt0 <= geo.threads and t1 + nt1 <= geo.threads
+    for t in range(nt0):
+        for it in range(t, bands * ws, nt0):
+            band, k = divmod(it, ws)
+            for r in range(st_inline.GWX_ROWS):
+                if band + r * bands < cs:
+                    gwx[band + r * bands, k] += 1
+    for t in range(nt1):
+        for it in range(t, cs * tq, nt1):
+            i, q = divmod(it, tq)
+            for c in range(st_inline.TMP_COLS):
+                if q + c * tq < ws:
+                    tmp[i, q + c * tq] += 1
+    dq = -(-ws // st_inline.DWIN_COLS)
+    yspan = 32 * -(-cs // 32)
+    (t0, nt0), (t1, nt1) = _split(geo.threads, ws * dq, 2 * yspan)
+    assert t0 + nt0 <= geo.threads and t1 + nt1 <= geo.threads
+    for t in range(nt0):
+        for it in range(t, ws * dq, nt0):
+            j, q = divmod(it, dq)
+            for c in range(st_inline.DWIN_COLS):
+                if q + c * dq < ws:
+                    d_win[j, q + c * dq] += 1
+    # the 32 items a warp takes at once are rows of one axis: y rows
+    # [0, yspan), x rows [yspan, 2 yspan), whole warps each
+    assert t1 % 32 == 0 and nt1 % 32 == 0
+    for t in range(nt1):
+        for item in range(t, 2 * yspan, nt1):
+            axis, i = divmod(item, yspan)
+            if i < cs:
+                dp[axis, i] += 1
+    return gwx, tmp, d_win, dp
+
+
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+def test_write_bwd_launch_geometry(cs, ws):
+    """The write backward's geometry, one CTA per image: every element of
+    gwx, tmp and d_win stored once and every row's dp formed once; the
+    products side by side at the model's shapes; the CTA's layout within the
+    card's shared memory; the bulk path at every shape but the odd one."""
+    geo = st_inline.write_bwd_geometry(cs, ws)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= cluster.MAX_THREADS
+    for formed in _write_bwd_outputs(geo, cs, ws):
+        np.testing.assert_array_equal(formed, 1)
+    if (cs, ws) == (50, 28):
+        # gwx's 112 items beside tmp's 100; d_win's 112 beside 2 x 64 rows'
+        # dp, on all 256 threads
+        assert geo.threads == 256
+        assert st_inline._write_bwd_phases(cs, ws) == [(112, 100), (112, 128)]
+    assert geo.smem_bytes == 4 * st_inline._write_bwd_smem_floats(cs, ws)
+    assert geo.smem_bytes <= build.MAX_SMEM_BYTES
+    assert geo.bulk == ((cs, ws) != (21, 7))
+
+
+def test_write_bwd_refuses_a_cta_that_does_not_fit():
+    """Off the CPU the write backward computes its geometry before it builds
+    or launches anything: a 250 x 250 canvas cotangent (250 KB) does not fit
+    one CTA's shared memory."""
+    b, cs, ws, dev = 1, 250, 28, "meta"
+    s = torch.empty((b,), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.write_accumulate_bwd(torch.empty((b, ws, ws), device=dev),
+                                       torch.empty((b, cs, cs), device=dev),
+                                       s, s, s, s, s)
+    with pytest.raises(ValueError, match="shared memory"):
+        st_inline.write_bwd_geometry(cs, ws)
+
+
+def _warp_tree(x):
+    """The xor-shuffle sum of 32 float32 lanes (every lane ends with it)."""
+    for off in (16, 8, 4, 2, 1):
+        x = (x + x[np.arange(32) ^ off]).astype(np.float32)
+    return x[0]
+
+
+def _block_sum(lanes):
+    """A 256-thread block_sum of one value per thread: the warps' trees,
+    then the 8 warps' sums in order from 0."""
+    total = np.float32(0.0)
+    for w in range(8):
+        total = np.float32(total + _warp_tree(lanes[32 * w:32 * (w + 1)]))
+    return total
+
+
+@pytest.mark.parametrize("cs,ws", GEOMETRY_SHAPES)
+def test_write_bwd_scalars_keep_the_256_thread_order(cs, ws):
+    """The CTA's five sums as st_cluster.cuh:lane_tree_sums forms them
+    on the geometry's thread count (thread v0 computes virtual lanes v0,
+    v0 + threads, ..., warp w0 reduces rows w0, w0 + warps, ... of 32 lanes
+    of every sum, thread 0 adds each sum's 8 rows in order) give the bits of
+    the one-block kernel's 256 threads: d_coeff's lane t an fmaf chain of
+    tmp * gwx over the row-major elements t, t + 256, ..., each axis's lane t
+    the chains over rows t, t + 256, ... of t_i * dp_i and dp_i."""
+    geo = st_inline.write_bwd_geometry(cs, ws)
+    rng = np.random.default_rng(cs)
+    tmp, gwx = (torch.from_numpy(rng.standard_normal(cs * ws).astype(
+        np.float32)) for _ in range(2))
+    dp = torch.from_numpy(rng.standard_normal((2, cs)).astype(np.float32))
+    t = _linspace(cs, "cpu")
+
+    def lane(v):
+        x = []
+        for axis in range(2):
+            ta = tc = torch.zeros(())
+            for i in range(v, cs, cluster.LANES):
+                ta = _fma(t[i], dp[axis, i], ta)
+                tc = (tc + dp[axis, i]).float()
+            x += [ta, tc]
+        dco = torch.zeros(())
+        for idx in range(v, cs * ws, cluster.LANES):
+            dco = _fma(tmp[idx], gwx[idx], dco)
+        return np.array([float(v) for v in x + [dco]], dtype=np.float32)
+
+    k = 5
+    lanes = np.zeros((k, cluster.LANES), dtype=np.float32)
+    seen = np.zeros(cluster.LANES, dtype=np.int64)
+    for v0 in range(geo.threads):
+        for v in range(v0, cluster.LANES, geo.threads):
+            lanes[:, v] = lane(v)
+            seen[v] += 1
+    np.testing.assert_array_equal(seen, 1)
+    rows = lanes.reshape(k * cluster.LANES // 32, 32)
+    red = np.zeros(len(rows), dtype=np.float32)
+    reduced = np.zeros(len(rows), dtype=np.int64)
+    warps = geo.threads // 32
+    for w0 in range(warps):
+        for w in range(w0, cluster.LANES // 32, warps):
+            for sm in range(k):
+                row = sm * cluster.LANES // 32 + w
+                red[row] = _warp_tree(rows[row])
+                reduced[row] += 1
+    np.testing.assert_array_equal(reduced, 1)
+    got = []
+    for s in range(k):
+        total = np.float32(0.0)
+        for w in range(cluster.LANES // 32):
+            total = np.float32(total + red[s * cluster.LANES // 32 + w])
+        got.append(total)
+    # the one-block kernel: thread t of 256 holds lane t's chains
+    old = np.stack([lane(v) for v in range(cluster.LANES)], axis=1)
+    want = [_block_sum(old[s]) for s in range(k)]
+    assert np.array_equal(np.array(got).view(np.int32),
+                          np.array(want).view(np.int32))
+    # the small shapes take fewer than 256 threads: a map not the identity
+    assert geo.threads < cluster.LANES or cs > 30
