@@ -165,3 +165,22 @@ DEFAULT_TRAINING_CONFIG = AIRConfig(
         },
     },
 )
+
+
+def pin_raw_pixel_numerics(cnn: bool, adam_dtype: str | None = None,
+                           unroll: int | None = None) -> dict:
+    """Config overrides of the JAX package's ``pin_raw_pixel_numerics``:
+    a raw-pixel run (``cnn=False``) keeps the rolled scan and float32 Adam
+    moments unless ``adam_dtype`` / ``unroll`` say otherwise; the CNN
+    encoder takes the defaults. Returns kwargs for ``AIRConfig.replace``."""
+    if not cnn:
+        if unroll is None:
+            unroll = 1
+        if adam_dtype is None:
+            adam_dtype = "float32"
+    out = {}
+    if adam_dtype is not None:
+        out["adam_storage_dtype"] = adam_dtype
+    if unroll is not None:
+        out["scan_unroll"] = unroll
+    return out

@@ -11,8 +11,11 @@ Counterpart of ``air_tpu/train/checkpoint.py``. A checkpoint is
   * ``step``.
 
 The sidecar is written first and the ``.npz`` renamed into place last, so a
-kill mid-save never exposes a checkpoint without its sidecar. The port's
-``seed`` goes in the sidecar; the JAX package's PRNG ``key`` entry is
+kill mid-save never exposes a checkpoint without its sidecar. It holds the
+loader's position (``loader_state``, which ``load_checkpoint`` restores into
+a loader it is given) and the trainer's stall-recovery bookkeeping
+(``recovery``), as the JAX package's does. The port's ``seed`` goes in the
+sidecar too; the JAX package's PRNG ``key`` entry is
 neither written nor needed (its ``load_checkpoint`` then takes a fresh key).
 The JAX package's ``load_checkpoint`` reads what ``save_checkpoint`` writes,
 and ``load_checkpoint`` here reads the JAX package's checkpoints, optimizer
@@ -125,9 +128,12 @@ def latest_checkpoint(directory: str, prefix: str = "air-model"):
 def save_checkpoint(directory: str, state: TrainState, step: int | None = None,
                     loader_state: dict | None = None,
                     max_to_keep: int = 10000,
-                    prefix: str = "air-model") -> str:
+                    prefix: str = "air-model",
+                    recovery: dict | None = None) -> str:
     """Write ``<directory>/<prefix>-<step>.npz`` and its sidecar; keep the
-    newest ``max_to_keep``. Returns the checkpoint path."""
+    newest ``max_to_keep``. ``recovery``: the trainer's stall-recovery
+    bookkeeping (``Trainer.recovery_meta``), kept in the sidecar when given.
+    Returns the checkpoint path."""
     os.makedirs(directory, exist_ok=True)
     if step is None:
         step = int(state.step)
@@ -143,6 +149,8 @@ def save_checkpoint(directory: str, state: TrainState, step: int | None = None,
     path = os.path.join(directory, f"{prefix}-{step}.npz")
     meta = {"step": step, "loader_state": loader_state,
             "num_opt_leaves": len(opt_leaves), "seed": int(state.seed)}
+    if recovery is not None:
+        meta["recovery"] = recovery
     sidecar = _sidecar(path)
     with open(sidecar + ".tmp", "w") as f:
         json.dump(meta, f)
@@ -160,17 +168,20 @@ def save_checkpoint(directory: str, state: TrainState, step: int | None = None,
     return path
 
 
-def load_checkpoint(path: str, config: AIRConfig,
+def load_checkpoint(path: str, config: AIRConfig, loader=None, meta=None,
                     device="cuda") -> TrainState:
     """A TrainState on ``device`` from a checkpoint of either package.
     ``config`` gives the optimizer's structure: a params-only checkpoint
     gets a fresh optimizer state. The seed comes from the sidecar (0 for a
-    checkpoint the JAX package wrote)."""
+    checkpoint the JAX package wrote). ``loader`` (optional) is restored in
+    place from the sidecar's ``loader_state``; ``meta`` is the sidecar when
+    the caller has read it already (``checkpoint_meta``)."""
+    if meta is None:
+        meta = checkpoint_meta(path)
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
     params = params_from_jax(_unflatten_params(arrays), device)
-    state = create_train_state(config,
-                               seed=int(checkpoint_meta(path).get("seed", 0)),
+    state = create_train_state(config, seed=int(meta.get("seed", 0)),
                                params=params, device=device)
     n = sum(1 for k in arrays if k.startswith("opt/"))
     if n:
@@ -186,4 +197,6 @@ def load_checkpoint(path: str, config: AIRConfig,
                              "config's optimizer (learning-rate schedule or "
                              "adam_storage_dtype)")
         state = state.replace(opt_state=opt_state)
+    if loader is not None and meta.get("loader_state"):
+        loader.restore(meta["loader_state"])
     return state.replace(step=int(arrays["step"]))

@@ -55,6 +55,23 @@ line with the card's name and power limit as nvidia-smi reports them:
               canvases; the train step (median of 10, host clock, each
               ending in a synchronize) through each path's kernels and
               through the plain path.
+  7. trainer  the port's trainer, as ``python -m air_tpu_torch.training``
+              configures it (the robust default, st_impl="inline"), on a
+              multi-MNIST set generated here from the committed digit pool
+              (TRAINER_PER_STRATUM canvases per digit count, TRAINER_TEST of
+              them held out) in a temporary directory. The device-data loop
+              runs TRAINER_STEPS steps, TRAINER_K per host iteration, with
+              evals, checkpoints and gradient summaries every
+              TRAINER_EVERY steps (the trainer's main run): the kernels
+              launch max_steps times per forward pass the trainer counts
+              (kernels 1-4 per train step, 1-2 per eval) and no other
+              kernel does; the mean loss of the last 50 steps is below that
+              of the first 50; every eval accuracy is finite; the
+              checkpoints, the summary JSONL and a PNG exist. Resuming from
+              the step-200 checkpoint gives the uninterrupted run's losses
+              from step 201 on and its final params bit for bit. The host
+              loop runs TRAINER_HOST_STEPS steps under the same checks.
+              Prints ms/step and images/s of both loops.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -64,9 +81,11 @@ a temporary directory that is removed.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -76,17 +95,23 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from air_tpu_torch import training
+from air_tpu_torch.data import (MultiMNISTConfig, generate_dataset,
+                                load_digit_pool, load_test_data)
 from air_tpu_torch.kernels import build, st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
 from air_tpu_torch.serve.model_wrapper import ModelWrapper
-from air_tpu_torch.train.checkpoint import (checkpoint_arch, load_checkpoint,
-                                            load_params, save_checkpoint)
+from air_tpu_torch.train.checkpoint import (checkpoint_arch,
+                                            latest_checkpoint,
+                                            load_checkpoint, load_params,
+                                            save_checkpoint)
 from air_tpu_torch.train.metrics import summarize_outputs
 from air_tpu_torch.train.state import create_train_state
 from air_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        step_generator)
+from air_tpu_torch.train.trainer import Trainer
 from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -96,7 +121,7 @@ MODULES = (st_inline, st_pallas, st_fused)
 LIBRARIES = ("st_inline", "st_pallas", "st_fused")
 DEVICE = "cuda"
 
-TIME_BUDGET_S = 180.0
+TIME_BUDGET_S = 300.0
 KERNEL_TOL = 1e-5       # kernel vs plain version, fp32 FMA in both
 SCALAR_TOL = 1e-4       # backward scalar cotangents, x max(1, |plain|)
 PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
@@ -115,6 +140,15 @@ CS, WS = 50, 28
 # less reliably in 30-40 (PERF.md)
 TRAIN_STEPS = 60
 DETERMINISM_STEPS = 10
+# phase 7: the trainer on a set generated from the committed digit pool
+TRAINER_PER_STRATUM = 200
+TRAINER_TEST = 200
+TRAINER_STEPS = 300
+TRAINER_K = 50
+TRAINER_EVERY = 100
+TRAINER_RESUME_AT = 200
+TRAINER_HOST_STEPS = 20
+TRAINER_MEAN_OF = 50
 # the kernels each path launches: (forward, backward)
 PATHS = {
     "inline": (("inline_attention_read", "inline_write_accumulate"),
@@ -589,6 +623,170 @@ def train_step_ms(train_step, state, images, digits, runs: int = 10):
     return float(np.median(times))
 
 
+def trainer_run(argv: list, log_path: str) -> tuple:
+    """A Trainer configured by ``python -m air_tpu_torch.training``'s flags,
+    trained with its stdout in ``log_path``. Returns (trainer, result)."""
+    args = training.build_parser().parse_args(["--device", DEVICE, *argv])
+    training.check_ported(args)
+    model_config, trainer_config = training.configs(args)
+    test = load_test_data(args.test_data, shift_zero_digits_images=True)
+    with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+        trainer = Trainer(model_config, trainer_config, args.train_data, test)
+        result = trainer.train()
+    torch.cuda.synchronize()
+    return trainer, result
+
+
+def records(trainer, prefix: str) -> dict:
+    """{step: record} of the trainer's JSONL lines that hold ``prefix``."""
+    out = {}
+    with open(trainer.metrics.path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if any(k.startswith(prefix) for k in rec):
+                out[rec["step"]] = rec
+    return out
+
+
+def expect_trainer_launches(trainer, what: str) -> dict:
+    """Fail unless, since the last reset, kernels 1-4 launched max_steps
+    times per forward pass the trainer ran (the backward kernels per train
+    and gradient step, the forward ones per eval too) and no other kernel
+    did. Returns the inline kernels' counts."""
+    t = trainer.config.max_steps
+    steps = trainer.calls["train"] + trainer.calls["grad"]
+    fwd, bwd = PATHS["inline"]
+    want = {**{k: t * (steps + trainer.calls["eval"]) for k in fwd},
+            **{k: t * steps for k in bwd}}
+    expect_launches({k: 0 for k in launches()}, want,
+                    f"{what} ({dict(trainer.calls)} forward passes)")
+    return want
+
+
+def check_trainer(card_line: str) -> dict:
+    """Phase 7. Returns the inline kernels' launches in the trainer's main
+    run (the device-data loop)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        pool, labels = load_digit_pool()
+        data = os.path.join(tmp, "data")
+        generate_dataset(pool, labels, MultiMNISTConfig(
+            images_per_digit=TRAINER_PER_STRATUM, test_set_size=TRAINER_TEST,
+            seed=0), out_dir=data)
+        say("trainer", card_line, f"generated {3 * TRAINER_PER_STRATUM} "
+            f"canvases ({TRAINER_TEST} held out) from the committed pool of "
+            f"{len(pool)} digits in {time.perf_counter() - t:.1f} s")
+        log = os.path.join(tmp, "trainer.log")
+        common = ["--train-data", os.path.join(data, "common.airrec"),
+                  "--test-data", os.path.join(data, "test.airrec"),
+                  "--log-every", "1"]
+        device_loop = [*common, "--device-data",
+                       "--multi-step", str(TRAINER_K),
+                       "--eval-every", str(TRAINER_EVERY),
+                       "--save-every", str(TRAINER_EVERY),
+                       "--grad-every", str(TRAINER_EVERY),
+                       "--img-every", str(TRAINER_STEPS)]
+        try:
+            # the trainer's main run
+            run_a = os.path.join(tmp, "a")
+            reset_launches()
+            trainer, result = trainer_run(
+                [*device_loop, "--results-folder", run_a,
+                 "--steps", str(TRAINER_STEPS)], log)
+            main_launches = expect_trainer_launches(
+                trainer, "the device-data loop")
+            train = records(trainer, "train/")
+            losses = [train[s]["train/loss"]
+                      for s in range(1, TRAINER_STEPS + 1)]
+            first = float(np.mean(losses[:TRAINER_MEAN_OF]))
+            last = float(np.mean(losses[-TRAINER_MEAN_OF:]))
+            if not (np.all(np.isfinite(losses)) and last < first):
+                fail(f"trainer: mean loss of the last {TRAINER_MEAN_OF} "
+                     f"steps {last} not below that of the first "
+                     f"{TRAINER_MEAN_OF} {first}, or a loss is not finite")
+            evals = {s: r["test/accuracy"]
+                     for s, r in records(trainer, "test/").items()}
+            if (sorted(evals) != list(range(0, TRAINER_STEPS + 1,
+                                            TRAINER_EVERY))
+                    or not np.all(np.isfinite(list(evals.values())))):
+                fail(f"trainer: eval accuracies {evals}")
+            saved = [f"air-model-{s}.npz" for s in evals]
+            missing = [f for f in saved if not os.path.exists(
+                os.path.join(trainer.models_dir, f))]
+            png = os.path.join(trainer.summary_dir,
+                               f"reconstruction_{TRAINER_STEPS}.png")
+            if missing or not os.path.exists(png):
+                fail(f"trainer: missing checkpoints {missing} or {png}")
+            params_a = digest(tree_leaves(trainer.state.params))
+            say("trainer", card_line, f"device-data loop (K={TRAINER_K}) "
+                f"{TRAINER_STEPS} steps: launches={main_launches} for "
+                f"{dict(trainer.calls)} forward passes; loss mean of first "
+                f"{TRAINER_MEAN_OF} {first:.3f}, last {TRAINER_MEAN_OF} "
+                f"{last:.3f}; eval accuracy "
+                + " ".join(f"@{s}={a:.4f}" for s, a in evals.items())
+                + f"; checkpoints {saved}, metrics.jsonl and a PNG written; "
+                f"params_sha256={params_a}")
+            say("trainer", card_line, f"device-data loop: "
+                f"{result['ms_per_step']:.3f} ms/step in the train steps, "
+                f"{BATCH / result['ms_per_step'] * 1e3:.1f} images/s; "
+                f"{result['images_per_sec']:.1f} images/s over the whole "
+                f"run, events included")
+
+            # resume from the step-200 checkpoint of the main run
+            run_b = os.path.join(tmp, "b")
+            os.makedirs(os.path.join(run_b, "models"))
+            for ext in (".npz", ".json"):
+                shutil.copy(os.path.join(
+                    trainer.models_dir,
+                    f"air-model-{TRAINER_RESUME_AT}{ext}"),
+                    os.path.join(run_b, "models"))
+            resumed, _ = trainer_run(
+                [*device_loop, "--results-folder", run_b,
+                 "--steps", str(TRAINER_STEPS)], log)
+            again = records(resumed, "train/")
+            tail = range(TRAINER_RESUME_AT + 1, TRAINER_STEPS + 1)
+            params_b = digest(tree_leaves(resumed.state.params))
+            if (resumed.folder != run_b
+                    or [again.get(s, {}).get("train/loss") for s in tail]
+                    != [train[s]["train/loss"] for s in tail]
+                    or params_b != params_a):
+                fail(f"trainer: resuming from step {TRAINER_RESUME_AT} "
+                     "does not repeat the uninterrupted run (losses or "
+                     "params)")
+            say("trainer", card_line, f"resumed from the step-"
+                f"{TRAINER_RESUME_AT} checkpoint: loss at step "
+                f"{TRAINER_RESUME_AT + 1} "
+                f"{again[TRAINER_RESUME_AT + 1]['train/loss']!r} and every "
+                f"loss to step {TRAINER_STEPS} bit-equal to the "
+                f"uninterrupted run; params_sha256={params_b}")
+
+            # the host loop
+            reset_launches()
+            host, result = trainer_run(
+                [*common, "--results-folder", os.path.join(tmp, "c"),
+                 "--steps", str(TRAINER_HOST_STEPS), "--eval-every", "10",
+                 "--save-every", "10", "--grad-every", "10",
+                 "--img-every", "10"], log)
+            host_launches = expect_trainer_launches(host, "the host loop")
+            losses = [r["train/loss"]
+                      for r in records(host, "train/").values()]
+            if (len(losses) != TRAINER_HOST_STEPS
+                    or not np.all(np.isfinite(losses))
+                    or host.state.step != TRAINER_HOST_STEPS
+                    or latest_checkpoint(host.models_dir) is None):
+                fail(f"trainer: host loop losses {losses}")
+            say("trainer", card_line, f"host loop {TRAINER_HOST_STEPS} "
+                f"steps: launches={host_launches} for {dict(host.calls)} "
+                f"forward passes; loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+                f"{result['ms_per_step']:.3f} ms/step in the train steps, "
+                f"{BATCH / result['ms_per_step'] * 1e3:.1f} images/s")
+        except BaseException:
+            with open(log) as f:
+                sys.stderr.write(f.read()[-6000:])
+            raise
+    return main_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -726,6 +924,11 @@ def main() -> None:
         say("times", card_line, f"train step st_impl={impl} batch {BATCH} "
             f"median of 10: {ms:.3f} ms/step, {BATCH / ms * 1e3:.1f} "
             "images/s")
+
+    # 7. the trainer
+    trainer_launches = check_trainer(card_line)
+    for row in rows:
+        row["trainer_launches"] = trainer_launches.get(row["name"], 0)
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

@@ -17,7 +17,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # modules the port must have; the walk imports every module it finds
 PORT_MODULES = (
-    "air_tpu_torch.interop", "air_tpu_torch.tree",
+    "air_tpu_torch.interop", "air_tpu_torch.tree", "air_tpu_torch.training",
+    "air_tpu_torch.data.backgrounds", "air_tpu_torch.data.loader",
+    "air_tpu_torch.data.mnist", "air_tpu_torch.data.multi_mnist",
+    "air_tpu_torch.data.records", "air_tpu_torch.runtime.native",
+    "air_tpu_torch.utils.tb_writer",
     "air_tpu_torch.kernels.build", "air_tpu_torch.kernels.st_fused",
     "air_tpu_torch.kernels.st_inline", "air_tpu_torch.kernels.st_pallas",
     "air_tpu_torch.models.air", "air_tpu_torch.models.config",
@@ -26,7 +30,9 @@ PORT_MODULES = (
     "air_tpu_torch.ops.gaussian", "air_tpu_torch.ops.schedules",
     "air_tpu_torch.ops.transformer", "air_tpu_torch.serve.model_wrapper",
     "air_tpu_torch.train.checkpoint", "air_tpu_torch.train.metrics",
-    "air_tpu_torch.train.state", "air_tpu_torch.train.steps")
+    "air_tpu_torch.train.state", "air_tpu_torch.train.steps",
+    "air_tpu_torch.train.evaluate", "air_tpu_torch.train.trainer",
+    "air_tpu_torch.train.visualize")
 
 NO_JAX = """
 import importlib, pkgutil, runpy, sys
