@@ -5,10 +5,8 @@ package's ``air_tpu/models/config.py``: the checkpoints, the tests and the
 serving facade name the same knobs in both packages. The port keeps its own
 copy so that it imports nothing of the JAX package.
 
-Knobs that select a JAX/TPU execution strategy (``scan_unroll``,
-``adam_storage_dtype``) are kept for surface parity. Those whose paths are
-not ported yet (``decoder_layout="stepparallel"``,
-``compute_dtype="bfloat16"``, ``rnn_input_hoist``) raise
+Knobs that select a JAX/TPU execution strategy (``scan_unroll``) are kept
+for surface parity. ``st_pad_mode="clamp_cancel"``, not ported yet, raises
 ``NotImplementedError`` in ``air_tpu_torch.models.air``.
 """
 
@@ -80,7 +78,7 @@ class AIRConfig:
     # spatial transformer: "xla" (the plain separable products of
     # ops/transformer.py), "inline" (the hand-written kernels of
     # kernels/st_inline.py, weights built in-kernel from scalars) or
-    # "pallas" (streamed-weight kernels; not ported yet)
+    # "pallas" (streamed-weight kernels: st_pallas.py, st_fused.py)
     st_impl: str = "xla"
     # off-support boundary semantics; the port implements "zeros"
     st_pad_mode: str = "zeros"

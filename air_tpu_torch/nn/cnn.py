@@ -5,7 +5,9 @@ Counterpart of ``air_tpu/nn/cnn.py``: three 5x5 SAME relu convolutions with
 filters`` features. Weights are OIHW here (``interop.params_from_jax``
 transposes the JAX package's HWIO). The features are flattened in NHWC
 order, as the JAX package flattens them: the LSTM kernel's input rows are
-laid out that way.
+laid out that way. The convolutions run at the dtype of the images and of
+the params (the caller casts both, bfloat16 under
+``compute_dtype="bfloat16"``).
 """
 
 from __future__ import annotations

@@ -55,6 +55,8 @@ def two_layer_head_init(generator: torch.Generator, in_dim: int, hidden: int,
 
 
 def dense_apply(params: dict, x: torch.Tensor, activation=None) -> torch.Tensor:
+    """``x @ w + b`` at the dtype of ``x`` and of the params (the caller
+    casts the params to the compute dtype)."""
     y = x @ params["w"] + params["b"]
     if activation is not None:
         y = activation(y)

@@ -12,6 +12,12 @@ The wrapper runs on ``device`` ("cuda" unless the caller asks for "cpu").
 Its draws come from one ``torch.Generator`` seeded with ``seed``, so two
 wrappers with the same seed and the same sequence of calls draw the same
 noise.
+
+As the JAX package's wrapper does, it serves ``st_impl="xla"`` with the
+step-parallel decoder whatever layout the checkpoint trained with (the
+params are the same; the layout is a compute path, and the draws are the
+scan's), and a kernel path (``"inline"``, ``"pallas"``) with its own
+layout; ``decoder_layout`` forces one.
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ import numpy as np
 import torch
 
 from air_tpu_torch.interop import params_from_jax
-from air_tpu_torch.models.air import check_supported
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.train.steps import make_eval_step
 
@@ -53,14 +58,11 @@ class ModelWrapper:
     def __init__(self, config: AIRConfig, params, canvas_size: int | None = None,
                  window_size: int | None = None, seed: int = 0,
                  decoder_layout: str | None = None, device="cuda"):
-        # the JAX wrapper serves st_impl="xla" with the step-parallel decoder,
-        # which this port does not have yet: check_supported raises for it
         if decoder_layout is None:
             decoder_layout = ("stepparallel" if config.st_impl == "xla"
                               else config.decoder_layout)
         self.config = config.replace(train=False,
                                      decoder_layout=decoder_layout)
-        check_supported(self.config)
         if canvas_size is not None and canvas_size != config.canvas_size:
             raise ValueError(f"canvas_size {canvas_size} != "
                              f"config.canvas_size {config.canvas_size}")

@@ -7,7 +7,9 @@ pass, the backward pass, the optimizer (``train/state.py``), and the
 metrics. PyTorch runs it eagerly; with ``st_impl="inline"`` or
 ``"pallas"`` the attention read and the write-accumulate run their
 hand-written kernels on the card (``"pallas"``: the read's backward as
-plain products, as the JAX package takes XLA's there).
+plain products, as the JAX package takes XLA's there). The step trains
+through each decoder layout and under ``compute_dtype="bfloat16"``: the
+gradients, the master params and Adam stay float32 (``models/air.py``).
 
 Every random draw of a train step comes from a ``torch.Generator`` on the
 parameters' device seeded from ``(state.seed, state.step)``, the counterpart

@@ -102,17 +102,25 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def write_png(path: str, pixels: np.ndarray):
+    """An 8-bit PNG of ``pixels``: [H, W] uint8 grey (PIL's mode "L") or
+    [H, W, 3] uint8 RGB, unfiltered rows, zlib level 6. Needs no PIL."""
+    height, width = pixels.shape[:2]
+    channels = 1 if pixels.ndim == 2 else pixels.shape[2]
+    rows = np.concatenate([np.zeros((height, 1), np.uint8),   # filter: none
+                           pixels.reshape(height, width * channels)], axis=1)
+    color_type = {1: 0, 3: 2}[channels]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height,
+                                                8, color_type, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+    return path
+
+
 def save_grid_png(path: str, grid: np.ndarray, max_rows: int = 60):
     """Stack [B, H, W, 3] vertically into one 8-bit RGB PNG."""
     grid = np.clip(grid[:max_rows], 0.0, 1.0)
     stacked = (grid.reshape(-1, grid.shape[2], 3) * 255).astype(np.uint8)
-    height, width = stacked.shape[:2]
-    rows = np.concatenate([np.zeros((height, 1), np.uint8),   # filter: none
-                           stacked.reshape(height, width * 3)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height,
-                                                8, 2, 0, 0, 0)))
-        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_png_chunk(b"IEND", b""))
-    return path
+    return write_png(path, stacked)

@@ -11,8 +11,11 @@ else from the committed digit pool (``air_tpu_torch.data.get_mnist``).
 ``--st-impl`` picks the path of the attention read and write: ``inline``
 (the default: the hand-written kernels 1-4 of ``kernels/st_inline.cu`` in
 every train step, 1-2 in every eval), ``pallas`` (the streamed-weight
-kernels) or ``xla`` (plain PyTorch products, no kernel). Flags whose path
-the port does not have yet raise ``NotImplementedError``.
+kernels) or ``xla`` (plain PyTorch products, no kernel; the only path of
+``--decoder-layout stepparallel``). ``--compute-dtype bfloat16`` and
+``--rnn-input-hoist`` take every path. Flags whose path the port does not
+have yet (``--data-parallel``, ``--pipeline-unroll`` above 1) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,9 +27,6 @@ import sys
 # flags whose path the port lacks, and the ROADMAP item that brings it
 UNPORTED = {
     "--data-parallel": "Queue 1, multi-GPU",
-    "--decoder-layout stepparallel": "Queue 1, remaining layouts",
-    "--compute-dtype bfloat16": "Queue 1, remaining layouts",
-    "--rnn-input-hoist": "Queue 1, remaining layouts",
     "--pipeline-unroll > 1": "Queue 1, captured train step",
 }
 
@@ -96,12 +96,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "port's attention loop is eager)")
     parser.add_argument("--compute-dtype", default=None,
                         choices=["float32", "bfloat16"],
-                        help="float32 only in the port; bfloat16 raises")
+                        help="AIRConfig.compute_dtype: bfloat16 runs the "
+                             "CNN, LSTM, heads and VAE MLPs in bf16 "
+                             "(fp32 master params and Adam)")
     parser.add_argument("--decoder-layout", default=None,
                         choices=["scan", "stepparallel"],
-                        help="scan only in the port; stepparallel raises")
+                        help="AIRConfig.decoder_layout; stepparallel needs "
+                             "--st-impl xla")
     parser.add_argument("--rnn-input-hoist", action="store_true",
-                        help="not ported: raises")
+                        help="AIRConfig.rnn_input_hoist: the LSTM's input "
+                             "projection once per image")
     parser.add_argument("--stop-at-accuracy", type=float, default=None,
                         help="stop once test accuracy reaches this value")
     parser.add_argument("--stall-restart-step", type=int, default=60000,
@@ -139,10 +143,6 @@ def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose path the port lacks."""
     asked = {
         "--data-parallel": args.data_parallel,
-        "--decoder-layout stepparallel":
-            args.decoder_layout == "stepparallel",
-        "--compute-dtype bfloat16": args.compute_dtype == "bfloat16",
-        "--rnn-input-hoist": args.rnn_input_hoist,
         "--pipeline-unroll > 1": args.pipeline_unroll != 1,
     }
     for flag, on in asked.items():
@@ -196,6 +196,11 @@ def configs(args):
         learn_background=args.learn_background,
         freeze_background=args.bg_freeze,
         **pin_raw_pixel_numerics(args.cnn, args.adam_dtype, args.unroll),
+        **({"compute_dtype": args.compute_dtype}
+           if args.compute_dtype else {}),
+        **({"decoder_layout": args.decoder_layout}
+           if args.decoder_layout else {}),
+        **({"rnn_input_hoist": True} if args.rnn_input_hoist else {}),
     )
     bg_image, bg_schedule = None, None
     if args.bg_composite_kind or args.bg_composite_path:

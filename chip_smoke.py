@@ -73,6 +73,30 @@ line with the card's name and power limit as nvidia-smi reports them:
               loop runs TRAINER_HOST_STEPS steps under the same checks.
               Prints ms/step and images/s of both loops.
 
+  8. layouts  the paths of the JAX package's entry points, which take the
+              ST read and write through plain products (no ST kernel may
+              launch; each run is driven with the counts at 0 and read
+              after).
+              Serving at the JAX wrapper's defaults: ModelWrapper(config,
+              params) with no layout on both shipped checkpoints
+              (air-model-cnn-47500.npz, air-model-80000.npz) is
+              step-parallel, answers 1, 8 and 60 canvases at the JAX
+              package's bars (0.9 and 0.8), with the digit counts of a
+              scan-layout wrapper of the same seed and its reconstructions
+              to PATH_TOL; the CNN checkpoint at compute_dtype="bfloat16"
+              keeps 0.9 (its agreement with float32 printed). Training 60
+              steps with decoder_layout="stepparallel" and 60 with
+              compute_dtype="bfloat16"
+              (through the inline kernels): phase 5's progress rule,
+              float32 params, and 10 steps twice from one state bit-equal.
+              The tools: ``python -m air_tpu_torch.demo --headless 20``
+              prints 20 JSON lines of headless_demo.stream's format, and
+              ``python -m air_tpu_torch.embeddings`` over a test set
+              generated from the digit pool writes the projector files and
+              a sprite PNG that decodes. Then each serving path's kernels
+              per infer (torch.profiler) and its latency (median of 10, 1
+              and 64 canvases), beside the inline scan path's.
+
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
 result line is printed. Nothing is written outside air_tpu_torch/_build/ and
@@ -88,8 +112,10 @@ import os
 import shutil
 import subprocess
 import sys
+import struct
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -116,6 +142,7 @@ from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
+RAW_CKPT = os.path.join(REPO, "model", "air-model-80000.npz")
 FIXTURE = os.path.join(REPO, "air_tpu_torch", "assets", "serve_canvases.npz")
 MODULES = (st_inline, st_pallas, st_fused)
 LIBRARIES = ("st_inline", "st_pallas", "st_fused")
@@ -127,6 +154,10 @@ SCALAR_TOL = 1e-4       # backward scalar cotangents, x max(1, |plain|)
 PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
 GRAD_TOL = 1e-4         # train step 0, kernels vs plain path
 MIN_ACCURACY = 0.9      # the bar of the JAX package's shipped-model test
+# phase 8: the JAX package's bars for its shipped checkpoints
+# (tests/test_shipped_model.py:20-40,65-89)
+SERVE_BARS = {CKPT: 0.9, RAW_CKPT: 0.8}
+HEADLESS_FRAMES = 20
 BATCH = 64              # the serving bucket of the 60-canvas request
 SWEEP_BATCHES = (1, BATCH, 256, 1024)   # phase 6's kernels by batch
 SWEPT = ("pallas_attention_read", "pallas_attention_write",
@@ -787,14 +818,250 @@ def check_trainer(card_line: str) -> dict:
     return main_launches
 
 
+def decode_png(path: str) -> np.ndarray:
+    """The pixels of an 8-bit grey or RGB PNG with unfiltered rows, the
+    chunks' CRCs checked; raises ValueError on anything else."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    width, height, depth, color = header
+    channels = {0: 1, 2: 3}.get(color)
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, -1)
+    if (depth != 8 or channels is None or rows.shape[1] != width * channels + 1
+            or np.any(rows[:, 0])):
+        raise ValueError(f"{path}: unsupported PNG layout")
+    pixels = rows[:, 1:].reshape(height, width, channels)
+    return pixels[..., 0] if channels == 1 else pixels
+
+
+def infer_latency(wrapper, canvases, n: int, runs: int = 10) -> float:
+    """Median host ms of one infer call of n canvases (it ends in a
+    device-to-host copy)."""
+    req = canvases[np.arange(n) % len(canvases)]
+    wrapper.infer(req)
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        wrapper.infer(req)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def kernels_per_infer(wrapper, canvases, n: int, calls: int = 3) -> float:
+    """Kernels and copies the card runs per infer call of n canvases, from
+    torch.profiler's device rows."""
+    from torch.profiler import ProfilerActivity, profile
+    req = canvases[np.arange(n) % len(canvases)]
+    wrapper.infer(req)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            wrapper.infer(req)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sum(e.count for e in rows) / calls
+
+
+def check_default_serving(canvases, truth, card_line: str) -> dict:
+    """Phase 8, serving: both shipped checkpoints through the wrapper's
+    default layout, and the CNN one at bfloat16. Returns the wrappers."""
+    requests = [canvases[:1], canvases[:8], canvases]
+    wrappers = {}
+    for path, bar in SERVE_BARS.items():
+        name = os.path.basename(path)
+        config = DEFAULT_TRAINING_CONFIG.replace(**checkpoint_arch(path))
+        params = load_params(path)
+        wrapper = ModelWrapper(config, params, seed=0, device=DEVICE)
+        if wrapper.config.decoder_layout != "stepparallel":
+            fail(f"{name}: the default wrapper's layout is "
+                 f"{wrapper.config.decoder_layout}, not stepparallel")
+        scan = ModelWrapper(config, params, seed=0, decoder_layout="scan",
+                            device=DEVICE)
+        reset_launches()
+        served = [wrapper.infer(req) for req in requests]
+        torch.cuda.synchronize()
+        expect_launches({k: 0 for k in launches()}, {},
+                        f"{name} step-parallel serving")
+        err = 0.0
+        for req, got in zip(requests, served):
+            want = scan.infer(req)
+            if list(got[0]) != list(want[0]):
+                fail(f"{name}: step-parallel digit counts differ from the "
+                     f"scan layout's on {len(req)} canvases")
+            err = max(err, max(float(np.max(np.abs(a - b)))
+                               for a, b in zip(got[2], want[2])))
+            if not all(np.all(np.isfinite(r)) for r in got[2]):
+                fail(f"{name}: non-finite reconstructions")
+        if not err <= PATH_TOL:
+            fail(f"{name}: step-parallel reconstructions differ from the "
+                 f"scan layout's by {err}")
+        accuracy = float(np.mean(np.asarray(served[-1][0]) == truth))
+        if accuracy < bar:
+            fail(f"{name}: step-parallel accuracy {accuracy} < {bar}")
+        say("layouts", card_line, f"serve {name} at the wrapper's default "
+            f"(decoder_layout=stepparallel, st_impl=xla): requests "
+            f"{[len(r) for r in requests]}, ST kernel launches 0, accuracy "
+            f"{accuracy:.4f} (bar {bar}), digit counts equal to the scan "
+            f"layout's, reconstructions vs scan max abs {err:.3g} (tol "
+            f"{PATH_TOL}) reconstructions_sha256="
+            f"{digest(r for got in served for r in got[2])}")
+        wrappers[name] = wrapper
+
+    config = DEFAULT_TRAINING_CONFIG.replace(**checkpoint_arch(CKPT),
+                                             compute_dtype="bfloat16")
+    bf16 = ModelWrapper(config, load_params(CKPT), seed=0, device=DEVICE)
+    reset_launches()
+    digits16 = bf16.infer(canvases)[0]
+    torch.cuda.synchronize()
+    expect_launches({k: 0 for k in launches()}, {}, "bfloat16 serving")
+    accuracy = float(np.mean(np.asarray(digits16) == truth))
+    digits32 = wrappers[os.path.basename(CKPT)].infer(canvases)[0]
+    agree = float(np.mean(np.asarray(digits16) == np.asarray(digits32)))
+    if accuracy < MIN_ACCURACY:
+        fail(f"bfloat16 serving accuracy {accuracy} < {MIN_ACCURACY}")
+    say("layouts", card_line, f"serve {os.path.basename(CKPT)} at "
+        f"compute_dtype=bfloat16 (stepparallel): accuracy {accuracy:.4f}, "
+        f"digit counts equal to float32 serving on {agree:.4f} of "
+        f"{len(canvases)} canvases")
+    wrappers["bfloat16 " + os.path.basename(CKPT)] = bf16
+    return wrappers
+
+
+def check_layout_train(name: str, config, state0, images, digits,
+                       card_line: str) -> None:
+    """Phase 8, training: TRAIN_STEPS steps through ``config``'s layout
+    under phase 5's checks, and DETERMINISM_STEPS twice from one state."""
+    impl, steps = config.st_impl, config.max_steps
+    per_step = ({k: steps for k in PATHS[impl][0] + PATHS[impl][1]}
+                if impl in PATHS else {})
+    train_step = make_train_step(config)
+    state, losses, recons = state0, [], []
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = launches()
+        state, m = train_step(state, images, digits)
+        expect_launches(before, per_step, f"{name} train step {i}")
+        losses.append(float(m["loss"]))
+        recons.append(float(m["reconstruction_loss"]))
+    seconds = time.perf_counter() - t0
+    main_launches = {k: launches()[k] for k in per_step}
+    if not np.all(np.isfinite(losses)):
+        fail(f"{name}: non-finite training loss: {losses}")
+    leaves = list(zip(tree_leaves_with_path(state.params),
+                      tree_leaves(state0.params)))
+    still = [p for (p, a), b in leaves if torch.equal(a, b)]
+    not_f32 = [p for (p, a), _ in leaves if a.dtype != torch.float32]
+    if still or not_f32:
+        fail(f"{name}: leaves that did not move {still}, or not float32 "
+             f"{not_f32}")
+    first5, last5 = float(np.mean(recons[:5])), float(np.mean(recons[-5:]))
+    if not last5 < first5:
+        fail(f"{name}: mean reconstruction loss of the last 5 steps {last5} "
+             f"is not below that of the first 5 {first5}")
+    runs = []
+    for _ in range(2):
+        s, bits = state0, []
+        for _ in range(DETERMINISM_STEPS):
+            s, m = train_step(s, images, digits)
+            bits.append(m["loss"].view(torch.int32).item())
+        runs.append(bits)
+    if runs[0] != runs[1]:
+        fail(f"{name}: two runs of {DETERMINISM_STEPS} steps from the same "
+             "state part")
+    say("layouts", card_line, f"train {name}: {TRAIN_STEPS} steps in "
+        f"{seconds:.2f} s, ST kernel launches {main_launches}, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}, reconstruction loss mean of "
+        f"first 5 {first5:.3f}, last 5 {last5:.3f}; every leaf moved and is "
+        f"float32; {DETERMINISM_STEPS} steps twice from one state bit-equal; "
+        f"params_sha256={digest(tree_leaves(state.params))}")
+
+
+def run_tool(args: list, timeout: int = 300) -> str:
+    """stdout of ``python -m <args>`` run from the repository root; fails
+    the smoke run if it exits non-zero."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        fail(f"python -m {' '.join(args)} exited {proc.returncode}")
+    return proc.stdout
+
+
+def check_tools(card_line: str) -> None:
+    """Phase 8, the tools: the headless demo and the embeddings export,
+    each as a user runs it."""
+    t = time.perf_counter()
+    out = run_tool(["air_tpu_torch.demo", "--headless", str(HEADLESS_FRAMES),
+                    "--model-path", CKPT])
+    recs = [json.loads(line) for line in out.splitlines()]
+    keys = {"frame", "digits", "boxes", "nll", "latency_ms"}
+    if (len(recs) != HEADLESS_FRAMES
+            or any(set(r) != keys or len(r["boxes"]) != r["digits"]
+                   or not np.isfinite(r["nll"]) for r in recs)
+            or [r["frame"] for r in recs] != list(range(HEADLESS_FRAMES))):
+        fail(f"headless demo: {len(recs)} lines, not {HEADLESS_FRAMES} in "
+             f"headless_demo.stream's format")
+    say("layouts", card_line, f"python -m air_tpu_torch.demo --headless "
+        f"{HEADLESS_FRAMES}: {len(recs)} JSON lines, digits "
+        f"{[r['digits'] for r in recs]}, median latency "
+        f"{float(np.median([r['latency_ms'] for r in recs])):.3f} ms/frame, "
+        f"{time.perf_counter() - t:.1f} s with the process's start")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        pool, labels = load_digit_pool()
+        generate_dataset(pool, labels, MultiMNISTConfig(
+            images_per_digit=40, test_set_size=60, seed=11),
+            out_dir=os.path.join(tmp, "data"))
+        folder = os.path.join(tmp, "embeddings")
+        out = run_tool(["air_tpu_torch.embeddings", "--model-path", CKPT,
+                        "--test-data", os.path.join(tmp, "data",
+                                                    "test.airrec"),
+                        "--results-folder", folder])
+        files = sorted(os.listdir(folder))
+        want = ["air_mnist_tensors.tsv", "mnist_metadata.tsv",
+                "mnist_sprites.png", "projector_config.pbtxt"]
+        if files != want:
+            fail(f"embeddings: wrote {files}, not {want}")
+        sprite = decode_png(os.path.join(folder, "mnist_sprites.png"))
+        vectors = np.loadtxt(os.path.join(folder, "air_mnist_tensors.tsv"),
+                             delimiter="\t", ndmin=2)
+        side = int(np.ceil(np.sqrt(len(vectors)))) * WS
+        if sprite.shape != (side, side) or vectors.shape[1] != 50:
+            fail(f"embeddings: sprite {sprite.shape}, vectors "
+                 f"{vectors.shape}")
+        stats = [line for line in out.splitlines() if ":" in line][-4:]
+        say("layouts", card_line, f"python -m air_tpu_torch.embeddings over "
+            f"60 test canvases generated from the digit pool: {files}; "
+            f"{len(vectors)} latents, sprite {sprite.shape} decoded; "
+            + "; ".join(stats) + f"; {time.perf_counter() - t:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     card_line = card()
 
     # 1. device
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    say("device", card_line, f"name={name} count={count} "
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    say("device", card_line, f"name={kind} count={count} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
 
     # 2. build: one nvcc per source, all started together
@@ -930,6 +1197,28 @@ def main() -> None:
     for row in rows:
         row["trainer_launches"] = trainer_launches.get(row["name"], 0)
 
+    # 8. the paths of the JAX package's entry points, and the tools
+    served = check_default_serving(canvases, truth, card_line)
+    check_layout_train("decoder_layout=stepparallel",
+                       train_cfg.replace(st_impl="xla",
+                                         decoder_layout="stepparallel"),
+                       state0, images, digits, card_line)
+    check_layout_train("compute_dtype=bfloat16",
+                       train_cfg.replace(st_impl="inline",
+                                         compute_dtype="bfloat16"),
+                       state0, images, digits, card_line)
+    check_tools(card_line)
+    for label, wrapper in {"inline scan " + os.path.basename(CKPT):
+                           wrappers["inline"], **served}.items():
+        lat = {n: infer_latency(wrapper, canvases, n) for n in (1, 64)}
+        kern = {n: kernels_per_infer(wrapper, canvases, n) for n in (1, 64)}
+        say("layouts", card_line, f"serve {label} "
+            f"({wrapper.config.decoder_layout}, st_impl="
+            f"{wrapper.config.st_impl}, {wrapper.config.compute_dtype}): "
+            f"infer latency median of 10: 1 canvas {lat[1]:.3f} ms, 64 "
+            f"canvases {lat[64]:.3f} ms; kernels and copies per infer: "
+            f"{kern[1]:.0f} (1 canvas), {kern[64]:.0f} (64)")
+
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:
         print(f"note: {elapsed:.0f}s is over the {TIME_BUDGET_S:.0f}s budget",
@@ -937,7 +1226,7 @@ def main() -> None:
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        "platform": "gpu", "kind": kind, "count": count}}), flush=True)
 
 
 if __name__ == "__main__":

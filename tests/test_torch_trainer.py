@@ -409,9 +409,7 @@ def test_checkpoint_sidecars_cross_packages(tmp_path):
 # --- the driver -------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--data-parallel"], ["--decoder-layout", "stepparallel"],
-    ["--compute-dtype", "bfloat16"], ["--rnn-input-hoist"],
-    ["--pipeline-unroll", "2"]], ids=lambda f: f[0])
+    ["--data-parallel"], ["--pipeline-unroll", "2"]], ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
     args = training.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -451,3 +449,48 @@ def test_driver_trains_from_generated_data(tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "res" / "source" / "air_tpu_torch" /
                           "training.py")
     shutil.rmtree(tmp_path / "res")
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--decoder-layout", "stepparallel", "--st-impl", "xla"],
+     {"decoder_layout": "stepparallel", "st_impl": "xla"}),
+    (["--compute-dtype", "bfloat16"], {"compute_dtype": "bfloat16"}),
+    (["--rnn-input-hoist"], {"rnn_input_hoist": True}),
+    ([], {"decoder_layout": "scan", "compute_dtype": "float32",
+          "rnn_input_hoist": False})], ids=lambda f: str(f))
+def test_training_cli_passes_the_layout_flags(flags, want):
+    """The three flags reach the model config as the root training.py
+    passes them (training.py:255-264); without them the config's own
+    defaults stand."""
+    args = training.build_parser().parse_args(flags)
+    training.check_ported(args)
+    cfg, _ = training.configs(args)
+    assert {k: getattr(cfg, k) for k in want} == want
+
+
+@pytest.mark.parametrize("flags", [
+    ["--decoder-layout", "stepparallel", "--st-impl", "xla",
+     "--rnn-input-hoist"],
+    ["--compute-dtype", "bfloat16", "--rnn-input-hoist"],
+    ["--compute-dtype", "bfloat16", "--decoder-layout", "stepparallel",
+     "--st-impl", "xla"]], ids=lambda f: " ".join(f))
+def test_training_cli_trains_through_the_layouts(tmp_path, monkeypatch, flags):
+    """python -m air_tpu_torch.training with the layout flags, both loops'
+    device-data variant at a tiny size on the CPU: finite losses, a
+    checkpoint, float32 master params."""
+    monkeypatch.chdir(tmp_path)
+    result = training.main([
+        "--device", "cpu", "--synthetic-data", "12", "--steps", "3",
+        "--batch-size", "8", "--rnn-units", "16", "--vae-latent", "4",
+        "--eval-every", "3", "--img-every", "3", "--save-every", "3",
+        "--grad-every", "3", "--log-every", "1", "--device-data",
+        "--multi-step", "3", "--results-folder", "res", *flags])
+    assert result["step"] == 3 and np.isfinite(result["test_accuracy"])
+    ckpt = tmp_path / "res" / "models" / "air-model-3.npz"
+    with np.load(ckpt) as z:
+        assert all(z[k].dtype == np.float32 for k in z.files
+                   if k.startswith("params/"))
+    with open(tmp_path / "res" / "summary" / "metrics.jsonl") as f:
+        losses = [r["train/loss"] for r in map(json.loads, f)
+                  if "train/loss" in r]
+    assert len(losses) == 3 and np.all(np.isfinite(losses))
