@@ -6,7 +6,8 @@ first use into a shared library under ``air_tpu_torch/_build/``. The file
 name carries a hash of the sources and flags, so a stale library is never
 loaded. Nothing here runs at import time: the CPU tests import every
 module on a machine without ``nvcc``. The kernel modules share the checks
-of their wrappers and the launch through ctypes (``check``, ``launch``).
+of their wrappers and the launch through ctypes (``check``, ``launch``),
+and the ``vmap`` rule of their autograd Functions (``fold_replicas``).
 """
 
 from __future__ import annotations
@@ -125,6 +126,30 @@ def check_smem(name: str, n_floats: int) -> None:
 
 def contiguous(*ts):
     return tuple(t.contiguous() for t in ts)
+
+
+def fold_replicas(function, info, in_dims, *args):
+    """The ``vmap`` rule of a kernel's ``torch.autograd.Function`` whose
+    tensor inputs all lead with the image axis: every input is brought to
+    ``[S, B, ...]`` (its vmapped dimension moved to the front, or an
+    unbatched input expanded), folded to ``[S*B, ...]``, and
+    ``function.apply`` runs once on the folded inputs, so each kernel
+    launches once for all S replicas. The kernels compute per image from
+    per-image scalars, so the fold computes what S separate calls would.
+    Non-tensor inputs pass through. Returns the outputs unfolded to
+    ``[S, B, ...]`` and their vmapped dimensions (0)."""
+    n = info.batch_size
+    folded = []
+    for a, d in zip(args, in_dims):
+        if isinstance(a, torch.Tensor):
+            a = a.movedim(d, 0) if d is not None else a.expand(n, *a.shape)
+            a = a.reshape(n * a.shape[1], *a.shape[2:])
+        folded.append(a)
+    out = function.apply(*folded)
+    if isinstance(out, torch.Tensor):
+        return out.reshape(n, -1, *out.shape[1:]), 0
+    return (tuple(o.reshape(n, -1, *o.shape[1:]) for o in out),
+            (0,) * len(out))
 
 
 def launch(fn, device, *tensors_and_sizes) -> None:

@@ -170,16 +170,24 @@ def wmac_bwd(windows, wy, wx, coeff, g):
 class _WmacCore(torch.autograd.Function):
     """``canvas + coeff * (Wy @ windows @ Wx^T)`` with the weight matrices
     as inputs; the counterpart of ``_wmac_core``. The canvas's cotangent is
-    g."""
+    g. Under ``torch.func.vmap`` the replicas fold into the image axis and
+    each kernel launches once (``build.fold_replicas``)."""
 
     @staticmethod
-    def forward(ctx, canvas, windows, wy, wx, coeff):
-        ctx.save_for_backward(windows, wy, wx, coeff)
+    def forward(canvas, windows, wy, wx, coeff):
         return wmac_fwd(canvas, windows, wy, wx, coeff)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, g):
         return (g, *wmac_bwd(*ctx.saved_tensors, g))
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return build.fold_replicas(_WmacCore, info, in_dims, *args)
 
 
 # -------------------- wrapper -----------------------------------------------

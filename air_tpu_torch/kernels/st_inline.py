@@ -356,32 +356,48 @@ def write_accumulate_bwd(windows, g, ay, cy, ax, cx, coeff):
 
 class _ReadCore(torch.autograd.Function):
     """Read with the (a, c) scalars of each axis as inputs; counterpart of
-    ``_read_core``."""
+    ``_read_core``. Under ``torch.func.vmap`` the replicas fold into the
+    image axis and each kernel launches once (``build.fold_replicas``)."""
 
     @staticmethod
-    def forward(ctx, images, ay, cy, ax, cx, ws: int):
-        ctx.save_for_backward(images, ay, cy, ax, cx)
+    def forward(images, ay, cy, ax, cx, ws: int):
         return attention_read_fwd(images, ay, cy, ax, cx, ws)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:5])
 
     @staticmethod
     def backward(ctx, g):
         return (*attention_read_bwd(ctx.saved_tensors[0], g,
                                     *ctx.saved_tensors[1:]), None)
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return build.fold_replicas(_ReadCore, info, in_dims, *args)
+
 
 class _WriteCore(torch.autograd.Function):
     """Write-accumulate with the (a, c) scalars of each axis and ``coeff`` as
-    inputs; counterpart of ``_write_core``. The canvas's cotangent is g."""
+    inputs; counterpart of ``_write_core``. The canvas's cotangent is g.
+    Folds the replicas of a vmap as ``_ReadCore`` does."""
 
     @staticmethod
-    def forward(ctx, canvas, windows, ay, cy, ax, cx, coeff):
-        ctx.save_for_backward(windows, ay, cy, ax, cx, coeff)
+    def forward(canvas, windows, ay, cy, ax, cx, coeff):
         return write_accumulate_fwd(canvas, windows, ay, cy, ax, cx, coeff)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, g):
         return (g, *write_accumulate_bwd(ctx.saved_tensors[0], g,
                                          *ctx.saved_tensors[1:]))
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return build.fold_replicas(_WriteCore, info, in_dims, *args)
 
 
 # -------------------- wrappers ----------------------------------------------

@@ -163,12 +163,17 @@ def fused_dots(wy: torch.Tensor, images: torch.Tensor, wx: torch.Tensor,
 
 class _FusedDots(torch.autograd.Function):
     """``Wy @ images @ Wx^T`` with the weight matrices as inputs; the
-    counterpart of the ``custom_vjp`` op of ``_make_op``."""
+    counterpart of the ``custom_vjp`` op of ``_make_op``. Under
+    ``torch.func.vmap`` the replicas fold into the image axis and the kernel
+    launches once (``build.fold_replicas``)."""
 
     @staticmethod
-    def forward(ctx, images, wy, wx, name: str):
-        ctx.save_for_backward(images, wy, wx)
+    def forward(images, wy, wx, name: str):
         return fused_dots(wy, images, wx, name)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:3])
 
     @staticmethod
     def backward(ctx, g):
@@ -180,6 +185,10 @@ class _FusedDots(torch.autograd.Function):
         d_wx = (torch.bmm(g.transpose(1, 2), torch.bmm(wy, images))
                 if need_wx else None)
         return d_img, d_wy, d_wx, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return build.fold_replicas(_FusedDots, info, in_dims, *args)
 
 
 def _resample(images, s, x, y, out_size: int, name: str, invert: bool):

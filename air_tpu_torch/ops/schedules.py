@@ -4,6 +4,11 @@ Counterpart of ``air_tpu/ops/schedules.py``: ``tf.train.exponential_decay``
 with optional ``min``/``max`` clamps, a final ``log``, a ``hold`` grace window
 before the decay starts and an ``offset`` added last. Values are float32
 0-d tensors, computed in float32 as the JAX package computes them.
+
+Seed-parallel training resolves every replica at once: ``step`` may be an
+[S] tensor (each replica's own clock) and a schedule's numeric fields [S]
+tensors (its rotation knobs); each replica's value is then the one its
+scalar step and fields give, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ def exponential_decay(init, step, decay_steps, decay_rate,
 
 
 def annealed_value(schedule: dict, step) -> torch.Tensor:
-    """Resolve one annealing-schedule dict at ``step``."""
+    """Resolve one annealing-schedule dict at ``step`` (a number or an [S]
+    tensor; the numeric fields may be [S] tensors too)."""
     decay_step = torch.clamp(_f32(step) - schedule.get("hold", 0), min=0.0)
     value = exponential_decay(
         schedule["init"], decay_step, schedule["iters"], schedule["factor"],

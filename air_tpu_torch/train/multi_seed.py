@@ -1,0 +1,408 @@
+"""Seed-parallel training: S independent AIR models trained at once on one
+card.
+
+Counterpart of ``air_tpu/train/multi_seed.py``. The JAX package vmaps its
+whole fused train step over a stacked state; here the forward pass runs
+under ``torch.func.vmap`` over the replica axis, the backward is one
+``torch.autograd.grad`` of the sum of the replicas' losses (the replicas
+share no parameter, so each leaf's gradient is its own replica's), and the
+optimizer updates the stacked tree (``Optimizer.update_replicas``). The
+hand-written kernels' autograd Functions fold the replica axis into the
+image axis (``kernels.build.fold_replicas``): with ``st_impl="inline"``
+each of kernels 1-4 launches once per attention step for all S*B images.
+A vmap that would loop over replicas (an op without a batching rule)
+raises instead (``no_vmap_fallback``).
+
+Semantics: replica r is the single-seed run of ``seeds[r]``: its init
+(``create_train_state(config, seed)``), its draws (``step_generator(seed,
+step)``, drawn outside the vmap and stacked), its epoch permutations of
+the shared device-resident set (``multi_seed_perms``: the host loader's,
+as ``DeviceDataPipeline`` takes them). Batched products round in another
+order than S separate ones, so the replicas agree with the single-seed
+runs to rounding, not to the bit (tests/test_torch_multi_seed.py).
+
+Each replica keeps its own clock (``state.step``, [S] on the host), so a
+re-seeded replica (``reinit_replica``) restarts its annealing schedules,
+and ``rotation_knobs`` give each replica its own bootstrap-schedule variant
+as [S] inputs of the schedules (``schedules_from_knobs``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from air_tpu_torch.data.loader import TrainLoader
+from air_tpu_torch.models.air import _numeric_flags, air_forward, draw_noise
+from air_tpu_torch.models.config import AIRConfig
+from air_tpu_torch.ops.schedules import resolve_annealed
+from air_tpu_torch.train.state import (TrainState, apply_updates,
+                                       create_train_state,
+                                       global_norm_replicas, make_optimizer,
+                                       stack_train_states)
+from air_tpu_torch.train.steps import step_generator
+from air_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+# the seed of the sweep's eval draws, (EVAL_SEED, step): the counterpart of
+# fold_in(PRNGKey(0x5EED), step) in the JAX package's sweep
+EVAL_SEED = 0x5EED
+
+
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """Within the block, an op without a vmap batching rule raises instead
+    of running once per replica in a loop."""
+    functorch = torch._C._functorch
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+
+
+def create_multi_seed_state(config: AIRConfig, seeds,
+                            device="cuda") -> TrainState:
+    """A stacked TrainState of the single-seed states of ``seeds``."""
+    return stack_train_states([create_train_state(config, seed=int(s),
+                                                  device=device)
+                               for s in seeds])
+
+
+def _device(state: TrainState) -> torch.device:
+    return tree_leaves(state.params)[0].device
+
+
+def reinit_replica(state: TrainState, config: AIRConfig, index: int,
+                   seed: int) -> TrainState:
+    """Replica ``index`` replaced by a fresh init of ``seed`` (params,
+    moments, clocks at 0); the other replicas are left as they are (stall
+    auto-recovery re-seeds only the stalled replica). ``state`` is left
+    unchanged."""
+    fresh = create_train_state(config, seed=int(seed), device=_device(state))
+    where = torch.tensor([index], device=_device(state))
+
+    def put(stacked, new):
+        return tree_map(lambda s, n: s.index_copy(0, where, n[None]),
+                        stacked, new)
+
+    def restart(clock):
+        if clock is None:
+            return None
+        clock = clock.clone()
+        clock[index] = 0
+        return clock
+
+    opt, new_opt = state.opt_state, fresh.opt_state
+    seeds = list(state.seed)
+    seeds[index] = int(seed)
+    return state.replace(
+        params=put(state.params, fresh.params),
+        opt_state=opt._replace(count=restart(opt.count),
+                               mu=put(opt.mu, new_opt.mu),
+                               nu=put(opt.nu, new_opt.nu),
+                               schedule_count=restart(opt.schedule_count)),
+        step=restart(state.step), seed=seeds)
+
+
+def multi_seed_perms(n: int, seeds, epoch: int,
+                     device="cuda") -> torch.Tensor:
+    """[S, n] int64 epoch permutations on ``device``, one per seed: the host
+    loader's ``TrainLoader(seed=s)._perm(epoch)`` (native or numpy, chosen
+    as the loader chooses), what ``DeviceDataPipeline`` uploads for a
+    single-seed run of ``s``."""
+    loader = TrainLoader((np.zeros((n, 1), np.float32),
+                          np.zeros(n, np.int32)), 1, prefetch=0)
+    perms = []
+    for s in seeds:
+        loader.reseed(int(s))
+        perms.append(np.asarray(loader._perm(epoch), np.int64))
+    return torch.from_numpy(np.stack(perms)).to(device)
+
+
+# --- Per-replica schedule rotation (restart variants as [S] inputs) ---
+#
+# The sequential Trainer rotates bootstrap-schedule variants across restart
+# attempts (trainer.DEFAULT_RESTART_ROTATION). Every variant differs only in
+# numeric knobs of three schedules, so each replica gets its own variant as
+# [S] knob tensors resolved by the same annealed_value:
+#
+#   z_pres_hold  grace window of the z_pres prior anneal (0 = reference)
+#   spc_init     1.0 turns the scale-prior curriculum on (mean walks
+#                0 -> -1; 0.0 leaves the constant default -1)
+#   spc_hold     curriculum delay (usually = z_pres_hold)
+#   temp_init    Concrete temperature anneal start (1.0 = the constant
+#                reference temperature, 5.0 = soft-decisions anneal)
+
+def rotation_knobs(z_pres_hold: float = 0.0, scale_curriculum: bool = False,
+                   spc_hold: float | None = None, temp_init: float = 1.0):
+    """One replica's schedule-knob dict (plain floats; stack for [S])."""
+    return {
+        "z_pres_hold": float(z_pres_hold),
+        "spc_init": 1.0 if scale_curriculum else 0.0,
+        "spc_hold": float(z_pres_hold if spc_hold is None else spc_hold),
+        "temp_init": float(temp_init),
+    }
+
+
+N_ROTATION_VARIANTS = 5    # keep == len(variants) in vmap_rotation_variant
+
+
+def rotation_variant_index(n_restarts: int) -> int:
+    """Which rotation variant the n-th restart runs (n >= 1)."""
+    return (n_restarts - 1) % N_ROTATION_VARIANTS
+
+
+def vmap_rotation_variant(n: int, base_hold: float):
+    """Knobs for the n-th restart (n >= 1): trainer.DEFAULT_RESTART_ROTATION
+    variant (n-1) % 5."""
+    variants = (
+        rotation_knobs(0.0),                                  # reference
+        rotation_knobs(base_hold, scale_curriculum=True,
+                       spc_hold=0.0),                         # scale-prior
+        rotation_knobs(base_hold, temp_init=5.0),             # temp anneal
+        rotation_knobs(2 * base_hold, temp_init=5.0),         # long hold
+        rotation_knobs(0.0, temp_init=5.0),                   # ref + temp
+    )
+    assert len(variants) == N_ROTATION_VARIANTS
+    return variants[rotation_variant_index(n)]
+
+
+def schedules_from_knobs(base_schedules: dict, knobs: dict) -> dict:
+    """Annealing-schedules dict with the three rotation-controlled schedules
+    rebuilt from ``knobs`` (floats, or [S] tensors)."""
+    sched = dict(base_schedules)
+    zp = dict(sched["z_pres_prior_log_odds"])
+    zp["hold"] = knobs["z_pres_hold"]
+    sched["z_pres_prior_log_odds"] = zp
+    # spc_init=0 -> value 0, +offset -> the constant default mean of -1
+    sched["scale_prior_mean"] = {
+        "init": knobs["spc_init"], "min": 0.0, "factor": 0.5,
+        "iters": 5000, "offset": -1.0, "hold": knobs["spc_hold"]}
+    # temp_init=1 -> clamped at min 1.0 == the constant reference temp
+    sched["z_pres_temperature"] = {
+        "init": knobs["temp_init"], "min": 1.0, "factor": 0.5,
+        "iters": 5000}
+    return sched
+
+
+def stack_knobs(knob_dicts):
+    """[S] knob dicts -> dict of [S] float32 host tensors."""
+    keys = knob_dicts[0].keys()
+    return {k: torch.tensor([d[k] for d in knob_dicts], dtype=torch.float32)
+            for k in keys}
+
+
+def set_replica_knobs(knobs_S: dict, index: int, knobs: dict) -> dict:
+    """``knobs_S`` with replica ``index``'s knobs replaced (a new dict)."""
+    out = {k: v.clone() for k, v in knobs_S.items()}
+    for k, v in out.items():
+        v[index] = knobs[k]
+    return out
+
+
+def replica_hparams(config: AIRConfig, steps: torch.Tensor, knobs_S,
+                    device) -> tuple[dict, dict]:
+    """Each replica's annealable hyperparameters at its own clock ([S]
+    ``steps``) and from its own knobs (or ``config.schedules``): the
+    annealed ones as [S] float32 tensors on ``device`` (resolved on the
+    host, one copy), the rest the config's static values. Returns them and
+    their vmap ``in_dims``."""
+    schedules = (config.schedules if knobs_S is None
+                 else schedules_from_knobs(config.schedules, knobs_S))
+    hp = resolve_annealed(schedules, config.annealable_defaults(), steps)
+    names = [k for k, v in hp.items() if isinstance(v, torch.Tensor)]
+    if names:
+        rows = torch.stack([hp[k].expand(len(steps)) for k in names])
+        hp.update(zip(names, rows.to(device, non_blocking=True)))
+    return hp, {k: 0 if k in names else None for k in hp}
+
+
+def replica_noise(config: AIRConfig, batch: int, seeds, steps,
+                  device) -> dict:
+    """Every replica's draws of one train step, stacked [S, ...]: replica r
+    draws from ``step_generator(seeds[r], steps[r])``, as the single-seed
+    step of that seed and step does."""
+    draws = [draw_noise(config, batch, step_generator(seed, step, device),
+                        device)
+             for seed, step in zip(seeds, steps.tolist())]
+    return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+
+def replica_gradients(config: AIRConfig, state: TrainState, images,
+                      targets, knobs_S=None, noise=None):
+    """Every replica's forward pass on its own batch (``images`` [S, B, D],
+    ``targets`` [S, B]) under ``torch.func.vmap``, at its own clock and
+    knobs, with its own draws (``replica_noise``, or ``noise`` [S, ...]),
+    and the gradient of each replica's loss. Returns (grads, metrics, hp):
+    a tree of [S, ...] gradient leaves; loss, accuracy,
+    reconstruction_loss and kl_loss, [S] each; the hyperparameters
+    (``replica_hparams``)."""
+    device = images.device
+    batch = targets.shape[1]
+    hp, hp_dims = replica_hparams(config, state.step, knobs_S, device)
+    if noise is None:
+        noise = replica_noise(config, batch, state.seed, state.step, device)
+
+    def losses(params, images, targets, noise, hp):
+        out = air_forward(params, config, images, targets, train=True,
+                          hparams=hp, noise=noise)
+        return (out.loss, out.accuracy, out.reconstruction_loss.mean(),
+                out.kl_loss.mean())
+
+    params = tree_map(lambda p: p.detach().requires_grad_(True),
+                      state.params)
+    with no_vmap_fallback():
+        loss, accuracy, recon, kl = vmap(
+            losses, in_dims=(0, 0, 0, 0, hp_dims))(
+                params, images, targets, noise, hp)
+    if device.type == "cuda":
+        _numeric_flags()  # the backward's products too
+    grads = tree_unflatten(params, torch.autograd.grad(
+        loss.sum(), tree_leaves(params)))
+    return grads, {"loss": loss.detach(), "accuracy": accuracy,
+                   "reconstruction_loss": recon.detach(),
+                   "kl_loss": kl.detach()}, hp
+
+
+def replica_batch(images, digits, perms_S, index: int, batch_size: int):
+    """Batch ``index`` of every replica's epoch permutation of the shared
+    ``images`` / ``digits``: [S, B, D] and [S, B], clamped to the last full
+    batch as the single-seed loop's gather is."""
+    n, n_rep = images.shape[0], perms_S.shape[0]
+    lo = min(index * batch_size, n - batch_size)
+    rows = perms_S[:, lo:lo + batch_size].reshape(-1)
+    return (images.index_select(0, rows).reshape(n_rep, batch_size, -1),
+            digits.index_select(0, rows).reshape(n_rep, batch_size))
+
+
+def _check_knobs(knob_schedules: bool, knobs_S) -> None:
+    if (knobs_S is not None) != knob_schedules:
+        raise ValueError(f"built with knob_schedules={knob_schedules}, "
+                         f"called with knobs_S "
+                         f"{'set' if knobs_S is not None else 'None'}")
+
+
+def make_multi_seed_step(config: AIRConfig, num_steps: int, batch_size: int,
+                         knob_schedules: bool = False,
+                         pipeline_unroll: int = 1):
+    """Returns ``multi(state_S, images, digits, perms_S, start,
+    knobs_S=None, noise=None) -> (state_S, metrics)``: ``num_steps`` train
+    steps of every replica, step i of replica r on rows ``perms_S[r, lo:lo +
+    B]``, ``lo = (start + i) * B``, of the shared device-resident ``images``
+    and ``digits`` (clamped to the last full batch, as the single-seed
+    loop's gather). ``perms_S`` is [S, n], one epoch permutation per
+    replica (``multi_seed_perms``); metrics come back as [K, S] tensors.
+    ``state_S`` is left unchanged.
+
+    ``knob_schedules=True`` takes ``knobs_S`` (``stack_knobs``), each
+    replica's bootstrap-schedule variant. ``pipeline_unroll`` other than 1
+    (the JAX package's scan unroll) raises: the port's step is eager.
+    ``noise``, K dicts of stacked [S, ...] draws, overrides the replicas'
+    generators (the tests feed JAX's draws)."""
+    if pipeline_unroll != 1:
+        raise NotImplementedError(
+            "pipeline_unroll > 1: not ported yet (ROADMAP Queue 1, captured "
+            "train step)")
+    optimizer = make_optimizer(config)
+
+    def step(state: TrainState, images, targets, knobs_S, noise):
+        grads, metrics, hp = replica_gradients(config, state, images,
+                                               targets, knobs_S, noise)
+        updates, opt_state = optimizer.update_replicas(grads,
+                                                       state.opt_state)
+        new_state = state.replace(
+            params=apply_updates(state.params, updates),
+            opt_state=opt_state, step=state.step + 1)
+        log_odds = hp["z_pres_prior_log_odds"]
+        if not isinstance(log_odds, torch.Tensor):
+            log_odds = torch.full(targets.shape[:1], log_odds,
+                                  dtype=torch.float32, device=images.device)
+        return new_state, {**metrics,
+                           "grad_norm": global_norm_replicas(grads),
+                           "z_pres_prior_log_odds": log_odds}
+
+    def multi(state_S: TrainState, images, digits, perms_S, start: int,
+              knobs_S=None, noise=None):
+        _check_knobs(knob_schedules, knobs_S)
+        metrics = []
+        for i in range(num_steps):
+            state_S, m = step(
+                state_S, *replica_batch(images, digits, perms_S,
+                                        int(start) + i, batch_size),
+                knobs_S, None if noise is None else noise[i])
+            metrics.append(m)
+        return state_S, {k: torch.stack([m[k] for m in metrics])
+                         for k in metrics[0]}
+
+    return multi
+
+
+def make_multi_seed_eval(config: AIRConfig, knob_schedules: bool = False):
+    """Per-replica eval: ``eval_fn(params_S, images, digits, key, steps_S,
+    knobs_S=None) -> (accuracy [S], loss [S])`` over one test batch (chunk
+    outside), device tensors. ``steps_S`` is per replica: each replica's
+    annealed hyperparameters resolve at its own clock (and, with
+    ``knob_schedules``, from its own ``knobs_S``). ``key`` is the ``(seed,
+    step)`` of the draws, shared by every replica (``step_generator``)."""
+
+    def one(params, images, digits, noise, hp):
+        out = air_forward(params, config, images, digits, train=False,
+                          hparams=hp, noise=noise)
+        return out.accuracy, out.per_example_loss.mean()
+
+    def eval_fn(params_S, images, digits, key, steps_S, knobs_S=None):
+        _check_knobs(knob_schedules, knobs_S)
+        device = images.device
+        hp, hp_dims = replica_hparams(config, steps_S, knobs_S, device)
+        noise = draw_noise(config, images.shape[0],
+                           step_generator(*key, device), device)
+        with torch.no_grad(), no_vmap_fallback():
+            return vmap(one, in_dims=(0, None, None, None, hp_dims))(
+                params_S, images, digits, noise, hp)
+
+    eval_fn.knob_schedules = knob_schedules
+    return eval_fn
+
+
+def evaluate_replicas(config: AIRConfig, state: TrainState, images, digits,
+                      key, step=None, batch_size: int = 500, eval_fn=None,
+                      knobs_S=None):
+    """Test-set accuracy and loss of every replica, in chunks of
+    ``batch_size`` (the tail chunk smaller): (accuracy [S], loss [S]) numpy
+    arrays, each the chunks' mean weighted by their sizes.
+
+    The annealed hyperparameters resolve at each replica's own clock
+    (``step=None``) or at a shared ``step``, and from each replica's own
+    ``knobs_S`` when given. ``key``: the (seed, step) of the draws."""
+    if eval_fn is None:
+        eval_fn = make_multi_seed_eval(config,
+                                       knob_schedules=knobs_S is not None)
+    elif eval_fn.knob_schedules != (knobs_S is not None):
+        raise ValueError(
+            f"eval_fn was built with knob_schedules={eval_fn.knob_schedules}"
+            f" but knobs_S is {'set' if knobs_S is not None else 'None'}: "
+            f"pass a matching pair (make_multi_seed_eval(config, "
+            f"knob_schedules={knobs_S is not None}))")
+    steps_S = (state.step if step is None
+               else torch.full_like(state.step, int(step)))
+    extra = () if knobs_S is None else (knobs_S,)
+    device = _device(state)
+    accs, losses, weights = [], [], []
+    for lo in range(0, len(images), batch_size):
+        chunk = torch.as_tensor(images[lo:lo + batch_size],
+                                dtype=torch.float32, device=device)
+        chunk_digits = torch.as_tensor(digits[lo:lo + batch_size],
+                                       dtype=torch.int32, device=device)
+        acc, loss = eval_fn(state.params, chunk, chunk_digits, key, steps_S,
+                            *extra)
+        accs.append(acc)
+        losses.append(loss)
+        weights.append(len(chunk))
+    acc, loss = (torch.stack(v).cpu().numpy().astype(np.float64)
+                 for v in (accs, losses))
+    w = np.asarray(weights, np.float64)[:, None]
+    return (acc * w).sum(0) / w.sum(), (loss * w).sum(0) / w.sum()

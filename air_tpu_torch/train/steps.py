@@ -71,26 +71,32 @@ def make_train_step(config: AIRConfig, bg_image=None,
                     bg_schedule: dict | None = None,
                     with_grad_stats: bool = False, pmean_axis=None,
                     schedules_fn=None):
-    """Returns ``train_step(state, images, targets, noise=None) ->
-    (new_state, metrics)``; ``state`` is left unchanged.
+    """Returns ``train_step(state, images, targets, knobs=None, noise=None)
+    -> (new_state, metrics)``; ``state`` is left unchanged.
 
     ``bg_image`` (a [canvas**2] full-intensity texture) composites each
     batch as ``clip(images + s(step) * bg, 0, 1)`` with ``s`` from
     ``bg_schedule`` (``bg_intensity``); it needs an explicit schedule.
     ``with_grad_stats`` adds per-variable norms and means of the gradients
     before and after the clip, and the gradients themselves
-    (``metrics["grad_tensors"]``)."""
-    if pmean_axis is not None or schedules_fn is not None:
+    (``metrics["grad_tensors"]``). ``schedules_fn``, a ``knobs ->
+    annealing-schedules dict`` callable (``lambda k: multi_seed.
+    schedules_from_knobs(config.schedules, k)`` for the sweep's rotation
+    knobs), resolves the annealed hyperparameters from
+    ``schedules_fn(knobs)`` instead of ``config.schedules``, as the JAX
+    package's step does."""
+    if pmean_axis is not None:
         raise NotImplementedError(
-            "pmean_axis and schedules_fn come with the multi-GPU and "
-            "seed-parallel slices of the port")
+            "pmean_axis comes with the multi-GPU slice of the port "
+            "(ROADMAP Queue 1)")
     if bg_image is not None and bg_schedule is None:
         raise ValueError("bg_image requires an explicit bg_schedule "
                          "({'target': s, 'start': 0, 'ramp': 0} for a "
                          "constant composite)")
     optimizer = make_optimizer(config)
 
-    def train_step(state: TrainState, images, targets, noise=None):
+    def train_step(state: TrainState, images, targets, knobs=None,
+                   noise=None):
         step = state.step
         device = tree_leaves(state.params)[0].device
         images = torch.as_tensor(images, dtype=torch.float32, device=device)
@@ -100,8 +106,9 @@ def make_train_step(config: AIRConfig, bg_image=None,
                                  device=device).reshape(-1)
             s = bg_intensity(bg_schedule, step)
             images = torch.clamp(images + s * bg[None, :], 0.0, 1.0)
-        hp = resolve_annealed(config.schedules, config.annealable_defaults(),
-                              step)
+        schedules = (config.schedules if schedules_fn is None
+                     else schedules_fn(knobs))
+        hp = resolve_annealed(schedules, config.annealable_defaults(), step)
         if noise is None:
             noise = draw_noise(config, images.shape[0],
                                step_generator(state.seed, step, device),

@@ -151,23 +151,32 @@ def check_ported(args) -> None:
                 f"{flag}: not ported yet (ROADMAP {UNPORTED[flag]})")
 
 
+def synthesize(out_dir: str, per_stratum: int, max_digits: int = 2,
+               canvas_size: int = 50, seed: int = 0) -> None:
+    """Generate a multi-MNIST set into ``out_dir`` (``common.airrec`` and
+    ``test.airrec``) the way the root training.py does: ``per_stratum``
+    canvases per digit count, ``min(1000, per_stratum)`` of them held out,
+    from real MNIST in ``mnist_data/`` or else the committed digit pool."""
+    from air_tpu_torch.data import (MultiMNISTConfig, generate_dataset,
+                                    get_mnist)
+    print(f"generating synthetic dataset ({per_stratum} images/stratum)...")
+    digits, labels, source = get_mnist("mnist_data")
+    print(f"digit source: {source}")
+    cfg = MultiMNISTConfig(
+        max_digits=max_digits, max_in_common=max_digits,
+        images_per_digit=per_stratum,
+        test_set_size=min(1000, per_stratum),
+        canvas_size=canvas_size, seed=seed)
+    generate_dataset(digits, labels, cfg, out_dir=out_dir,
+                     progress=lambda d, n: print(f"  {d}-digit: {n}"))
+
+
 def generate_data(args) -> None:
     """Generate the dataset the way the root training.py does, into the
     directory of --train-data; point the args at what was written."""
-    from air_tpu_torch.data import (MultiMNISTConfig, generate_dataset,
-                                    get_mnist)
-    print(f"generating synthetic dataset "
-          f"({args.synthetic_data} images/stratum)...")
-    digits, labels, source = get_mnist("mnist_data")
-    print(f"digit source: {source}")
     out_dir = os.path.dirname(args.train_data) or "."
-    cfg = MultiMNISTConfig(
-        max_digits=args.max_digits, max_in_common=args.max_digits,
-        images_per_digit=args.synthetic_data,
-        test_set_size=min(1000, args.synthetic_data),
-        canvas_size=args.canvas_size, seed=args.seed)
-    generate_dataset(digits, labels, cfg, out_dir=out_dir,
-                     progress=lambda d, n: print(f"  {d}-digit: {n}"))
+    synthesize(out_dir, args.synthetic_data, args.max_digits,
+               args.canvas_size, args.seed)
     gen_train = os.path.join(out_dir, "common.airrec")
     if not os.path.exists(args.train_data) and os.path.exists(gen_train):
         print(f"synthetic data written as {gen_train}; using it "

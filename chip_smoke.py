@@ -96,6 +96,31 @@ line with the card's name and power limit as nvidia-smi reports them:
               a sprite PNG that decodes. Then each serving path's kernels
               per infer (torch.profiler) and its latency (median of 10, 1
               and 64 canvases), beside the inline scan path's.
+  9. seeds    seed-parallel training (air_tpu_torch.train.multi_seed) of
+              SEEDS replicas of the robust default at full width, through
+              st_impl="inline" (kernels 1-4 folded over the S*64 images),
+              on phase 5's batch, each replica in the order of its own
+              epoch permutation. Step 0's gradients through the kernels
+              against the plain path (GRAD_TOL, every replica's leaf);
+              SEEDS_STEPS steps (the phase's main run): each step launches
+              kernels 1-4 max_steps times each and no other kernel, and
+              every replica passes phase 5's progress rule; each replica
+              against DETERMINISM_STEPS steps of the single-seed step of
+              its seed (losses to SEED_LOSS_TOL relative at steps 0-1, the
+              mean loss of the steps to SEED_DRIFT_TOL; the params after
+              one step: ``params_apart``);
+              DETERMINISM_STEPS steps twice from one state
+              bit-equal; a re-initialised replica leaves the others bit-
+              equal; st_impl="pallas" (kernels 5-7 folded) at step 0
+              against the plain path and SEED_PALLAS_STEPS steps. Then
+              ``python -m air_tpu_torch.seed_sweep`` on a set generated
+              from the committed digit pool (SEEDS_PER_STRATUM canvases
+              per digit count, SEEDS_TEST held out), SWEEP_ITERS steps
+              with evals every SWEEP_EVERY, and
+              ms/step (CUDA events), images/s and kernels plus copies per
+              step (torch.profiler) at S = 1, 4, 10 and 16 beside the
+              single-seed step's. Every vmap runs with the per-replica
+              fallback loop turned into an error.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -137,6 +162,11 @@ from air_tpu_torch.train.metrics import summarize_outputs
 from air_tpu_torch.train.state import create_train_state
 from air_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        step_generator)
+from air_tpu_torch.train.multi_seed import (create_multi_seed_state,
+                                            make_multi_seed_step,
+                                            multi_seed_perms, reinit_replica,
+                                            replica_batch, replica_gradients,
+                                            replica_noise)
 from air_tpu_torch.train.trainer import Trainer
 from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
 
@@ -180,6 +210,23 @@ TRAINER_EVERY = 100
 TRAINER_RESUME_AT = 200
 TRAINER_HOST_STEPS = 20
 TRAINER_MEAN_OF = 50
+# phase 9: seed-parallel training
+SEEDS = (0, 1, 2, 3)
+SEEDS_PER_STRATUM = 200
+SEEDS_TEST = 200
+SEEDS_STEPS = 60
+SEEDS_K = 10                 # steps per call of the seed-parallel step
+SEED_LOSS_TOL = 1e-4         # replica vs single-seed run, steps 0-1, relative
+# ... and their mean loss over the SEEDS_K steps: from step 2 on the runs
+# part, as this model's ill-conditioned gradient (its norm swings from 400
+# to 100,000 between steps) grows rounding by orders of magnitude a step
+# (losses 1.2% apart at step 4 on an H100)
+SEED_DRIFT_TOL = 1e-2
+SEED_PALLAS_STEPS = 2
+SWEEP_ITERS = 200
+SWEEP_EVERY = 100
+SWEEP_K = 50
+SEED_TIMED = (1, 4, 10, 16)  # S of the timings
 # the kernels each path launches: (forward, backward)
 PATHS = {
     "inline": (("inline_attention_read", "inline_write_accumulate"),
@@ -860,22 +907,29 @@ def infer_latency(wrapper, canvases, n: int, runs: int = 10) -> float:
     return float(np.median(times))
 
 
-def kernels_per_infer(wrapper, canvases, n: int, calls: int = 3) -> float:
-    """Kernels and copies the card runs per infer call of n canvases, from
-    torch.profiler's device rows."""
+def kernels_per_call(fn, calls: int = 3) -> tuple[float, float]:
+    """(kernels and copies, their device ms) the card runs per call of
+    ``fn`` (after one call to warm up), from torch.profiler's device
+    rows."""
     from torch.profiler import ProfilerActivity, profile
-    req = canvases[np.arange(n) % len(canvases)]
-    wrapper.infer(req)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            wrapper.infer(req)
+            fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
-    return sum(e.count for e in rows) / calls
+    return (sum(e.count for e in rows) / calls,
+            sum(e.self_device_time_total for e in rows) / calls / 1e3)
+
+
+def kernels_per_infer(wrapper, canvases, n: int, calls: int = 3) -> float:
+    """Kernels and copies the card runs per infer call of n canvases."""
+    req = canvases[np.arange(n) % len(canvases)]
+    return kernels_per_call(lambda: wrapper.infer(req), calls)[0]
 
 
 def check_default_serving(canvases, truth, card_line: str) -> dict:
@@ -1054,6 +1108,308 @@ def check_tools(card_line: str) -> None:
             + "; ".join(stats) + f"; {time.perf_counter() - t:.1f} s")
 
 
+def check_seed_gradients(config, state0, images, digits, perms,
+                         card_line: str) -> None:
+    """Step 0 of the seed-parallel step through the path's kernels against
+    the plain path (st_impl="xla") at the same params and draws: each
+    replica's loss to GRAD_TOL relative, each replica's slice of every
+    gradient leaf to GRAD_TOL * max(1, max |slice|)."""
+    impl, steps = config.st_impl, config.max_steps
+    batch_images, batch_digits = replica_batch(images, digits, perms, 0,
+                                               BATCH)
+    noise = replica_noise(config, BATCH, state0.seed, state0.step, DEVICE)
+    got = {}
+    for name in (impl, "xla"):
+        before = launches()
+        got[name] = replica_gradients(config.replace(st_impl=name), state0,
+                                      batch_images, batch_digits,
+                                      noise=noise)
+        torch.cuda.synchronize()
+        expect_launches(before,
+                        want_kernels(impl, steps) if name == impl else {},
+                        f"seed-parallel step 0 ({name}, "
+                        f"S={len(state0.seed)})")
+    (g_k, m_k, _), (g_p, m_p, _) = got[impl], got["xla"]
+    rel = float(((m_k["loss"] - m_p["loss"]).abs()
+                 / m_p["loss"].abs()).max())
+    grad_err = 0.0
+    for (path, g), w in zip(tree_leaves_with_path(g_k), tree_leaves(g_p)):
+        for r in range(len(state0.seed)):
+            e = (float((g[r] - w[r]).abs().max())
+                 / max(1.0, float(w[r].abs().max())))
+            grad_err = max(grad_err, e)
+            if not (e <= GRAD_TOL):
+                fail(f"seed-parallel {impl} step 0 gradient of replica {r}, "
+                     f"{'/'.join(map(str, path))}: kernels vs plain path "
+                     f"{e} > {GRAD_TOL} x max(1, max |leaf|)")
+    if not rel <= GRAD_TOL:
+        fail(f"seed-parallel {impl} step 0 losses, kernels vs plain path: "
+             f"relative diff {rel} > {GRAD_TOL}")
+    say("seeds", card_line, f"st_impl={impl} S={len(state0.seed)} step 0 "
+        f"kernels vs plain path: losses {m_k['loss'].tolist()} (max rel "
+        f"{rel:.3g}), gradient leaves max |diff| / max(1, max |leaf|) "
+        f"{grad_err:.3g} (tol {GRAD_TOL}); launches "
+        f"{want_kernels(impl, steps)} for all the replicas")
+
+
+def want_kernels(impl: str, steps: int) -> dict:
+    """Each of the path's kernels, max_steps launches (one train step)."""
+    return {k: steps for k in PATHS[impl][0] + PATHS[impl][1]}
+
+
+def params_apart(a_tree, b_tree, lr: float, steps: int) -> tuple:
+    """(max |diff|, mean |diff| over every element) of two param trees
+    trained ``steps`` Adam steps with bfloat16 moments from the same state;
+    fails beyond 2 * steps * lr (and 1e-6 for the params' own rounding) or
+    a mean above steps * lr * 2**-7. Adam moves an element by about lr
+    whatever its gradient's size: a gradient element that rounding moves
+    across zero gives steps up to 2 * lr apart, and a stored moment that
+    rounds to the other bfloat16 neighbour (2**-8 relative) an update up to
+    2**-7 * lr apart."""
+    diffs = [(a - b).abs().reshape(-1)
+             for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree))]
+    worst = max(float(d.max()) for d in diffs)
+    mean = float(torch.cat(diffs).mean())
+    if not (worst <= 2 * steps * lr + 1e-6
+            and mean <= steps * lr * 2 ** -7):
+        fail(f"params apart by {worst} (bound {2 * steps * lr}), mean "
+             f"{mean} (bound {steps * lr * 2 ** -7})")
+    return worst, mean
+
+
+def seed_step_ms(config, n_rep: int, images, digits, runs: int = 10):
+    """(ms per step from CUDA events over ``runs`` steps, (kernels and
+    copies, their device ms) per step) of the seed-parallel step at S =
+    n_rep, and of the single-seed step at n_rep = 0."""
+    if n_rep:
+        states = [create_multi_seed_state(config, range(n_rep),
+                                          device=DEVICE)]
+        perms = multi_seed_perms(images.shape[0], range(n_rep), 0,
+                                 device=DEVICE)
+        multi = make_multi_seed_step(config, 1, BATCH)
+
+        def step():
+            states[0] = multi(states[0], images, digits, perms, 0)[0]
+    else:
+        states = [create_train_state(config, seed=0, device=DEVICE)]
+        single = make_train_step(config)
+
+        def step():
+            states[0] = single(states[0], images[:BATCH], digits[:BATCH])[0]
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs, kernels_per_call(step)
+
+
+def check_seeds(train_cfg, images, digits, card_line: str) -> dict:
+    """Phase 9 on phase 5's batch (``images``, ``digits``: 64 canvases,
+    each replica in its own order). Returns the kernels' launches in its
+    main run (kernels 1-4: the SEEDS_STEPS seed-parallel steps) and in the
+    seed-parallel pallas steps (kernels 5-7)."""
+    config = train_cfg.replace(st_impl="inline")
+    lr, n_rep, n = config.learning_rate, len(SEEDS), images.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        pool, labels = load_digit_pool()
+        data = os.path.join(tmp, "data")
+        generate_dataset(pool, labels, MultiMNISTConfig(
+            images_per_digit=SEEDS_PER_STRATUM, test_set_size=SEEDS_TEST,
+            seed=3), out_dir=data)
+        say("seeds", card_line, f"generated {3 * SEEDS_PER_STRATUM} "
+            f"canvases ({SEEDS_TEST} held out) for the sweep in "
+            f"{time.perf_counter() - t:.1f} s")
+        state0 = create_multi_seed_state(config, SEEDS, device=DEVICE)
+        perms = multi_seed_perms(n, SEEDS, 0, device=DEVICE)
+        check_seed_gradients(config, state0, images, digits, perms,
+                             card_line)
+
+        # the phase's main run: SEEDS_STEPS steps, SEEDS_K per call
+        multi = make_multi_seed_step(config, SEEDS_K, BATCH)
+        per_call = {k: SEEDS_K * v
+                    for k, v in want_kernels("inline",
+                                             config.max_steps).items()}
+        state, losses, recons, first_k = state0, [], [], None
+        reset_launches()
+        t = time.perf_counter()
+        for i in range(0, SEEDS_STEPS, SEEDS_K):
+            before = launches()
+            state, m = multi(state, images, digits, perms, i)
+            expect_launches(before, per_call, f"seed-parallel steps "
+                            f"{i}-{i + SEEDS_K - 1}")
+            losses.append(m["loss"].cpu())
+            recons.append(m["reconstruction_loss"].cpu())
+            if first_k is None:
+                first_k = (state, m["loss"].cpu())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        main_launches = {k: launches()[k] for k in per_call}
+        losses, recons = torch.cat(losses).numpy(), torch.cat(recons).numpy()
+        if not np.all(np.isfinite(losses)):
+            fail(f"seed-parallel: non-finite losses {losses}")
+        for r in range(n_rep):
+            still = [path for (path, a), b in zip(
+                tree_leaves_with_path(state.params),
+                tree_leaves(state0.params)) if torch.equal(a[r], b[r])]
+            first5 = float(np.mean(recons[:5, r]))
+            last5 = float(np.mean(recons[-5:, r]))
+            if still or not last5 < first5:
+                fail(f"seed-parallel replica {r}: leaves that did not move "
+                     f"{still}, or reconstruction loss of the last 5 steps "
+                     f"{last5} not below the first 5 {first5}")
+        say("seeds", card_line, f"S={n_rep} {SEEDS_STEPS} seed-parallel "
+            f"steps ({SEEDS_K} per call) in {seconds:.2f} s, launches="
+            f"{main_launches}; per replica loss "
+            + ", ".join(f"{losses[0, r]:.3f} -> {losses[-1, r]:.3f}"
+                        for r in range(n_rep))
+            + "; reconstruction loss of the last 5 steps below the first 5 "
+            f"for every replica; every leaf of every replica moved; "
+            f"params_sha256={digest(tree_leaves(state.params))}")
+
+        # each replica against the single-seed run of its seed: the
+        # losses over SEEDS_K steps, the params after one
+        losses_k = first_k[1]
+        single = make_train_step(config)
+        state_1, _ = make_multi_seed_step(config, 1, BATCH)(
+            state0, images, digits, perms, 0)
+        worst = (0.0, 0.0, 0.0, 0.0)
+        for r, seed in enumerate(SEEDS):
+            st, ls = create_train_state(config, seed=seed, device=DEVICE), []
+            for i in range(SEEDS_K):
+                lo = min(i * BATCH, n - BATCH)
+                rows = perms[r, lo:lo + BATCH]
+                st, m = single(st, images[rows], digits[rows])
+                ls.append(float(m["loss"]))
+                if i == 0:
+                    apart = params_apart(
+                        [a[r] for a in tree_leaves(state_1.params)],
+                        tree_leaves(st.params), lr, 1)
+            got = losses_k[:, r].numpy()
+            rel = np.abs(got - ls) / np.abs(ls)
+            drift = abs(float(np.mean(got)) / float(np.mean(ls)) - 1.0)
+            if not (rel[:2].max() <= SEED_LOSS_TOL
+                    and drift <= SEED_DRIFT_TOL):
+                fail(f"seed-parallel replica {r} vs the single-seed run of "
+                     f"seed {seed}: losses {got.tolist()} vs {ls} (rel "
+                     f"{rel.tolist()}; tol {SEED_LOSS_TOL} at steps 0-1; "
+                     f"means {drift} apart, tol {SEED_DRIFT_TOL})")
+            worst = tuple(max(x, y) for x, y in
+                          zip(worst, (rel[:2].max(), drift, *apart)))
+        say("seeds", card_line, f"each of the {n_rep} replicas against "
+            f"{SEEDS_K} single-seed steps of its seed: losses max rel diff "
+            f"{worst[0]:.3g} at steps 0-1 (tol {SEED_LOSS_TOL}), mean loss "
+            f"over the {SEEDS_K} steps {worst[1]:.3g} apart (tol "
+            f"{SEED_DRIFT_TOL}); params after step 0 max |diff| "
+            f"{worst[2]:.3g} (bound {2 * lr:.3g}), mean |diff| "
+            f"{worst[3]:.3g} (bound {lr * 2 ** -7:.3g})")
+
+        runs = []
+        for _ in range(2):
+            st, m = make_multi_seed_step(config, DETERMINISM_STEPS, BATCH)(
+                state0, images, digits, perms, 0)
+            runs.append((m["loss"].view(torch.int32).tolist(),
+                         digest(tree_leaves(st.params))))
+        if runs[0] != runs[1]:
+            fail(f"seed-parallel: two runs of {DETERMINISM_STEPS} steps from "
+                 "the same state part")
+        fresh = create_train_state(config, seed=99, device=DEVICE)
+        moved = reinit_replica(state, config, 1, seed=99)
+        for a, b, f in zip(tree_leaves(moved.params),
+                           tree_leaves(state.params),
+                           tree_leaves(fresh.params)):
+            if not (all(torch.equal(a[r], b[r]) for r in (0, 2, 3))
+                    and torch.equal(a[1], f)):
+                fail("reinit_replica touched a replica other than 1")
+        if moved.step.tolist() != [SEEDS_STEPS, 0, SEEDS_STEPS, SEEDS_STEPS]:
+            fail(f"reinit_replica clocks {moved.step.tolist()}")
+        say("seeds", card_line, f"two runs of {DETERMINISM_STEPS} "
+            f"seed-parallel steps from one state: losses and params "
+            f"bit-equal; reinit_replica(1, seed=99) left replicas 0, 2, 3 "
+            f"bit-equal and gave replica 1 the fresh init and clock 0")
+
+        # the streamed-weight kernels 5-7 under the fold
+        pallas = config.replace(st_impl="pallas")
+        check_seed_gradients(pallas, state0, images, digits, perms,
+                             card_line)
+        reset_launches()
+        before = launches()
+        _, m_k = make_multi_seed_step(pallas, SEED_PALLAS_STEPS, BATCH)(
+            state0, images, digits, perms, 0)
+        torch.cuda.synchronize()
+        expect_launches(before, {k: SEED_PALLAS_STEPS * v for k, v in
+                                 want_kernels("pallas",
+                                              config.max_steps).items()},
+                        f"{SEED_PALLAS_STEPS} seed-parallel pallas steps")
+        pallas_launches = launches()
+        _, m_p = make_multi_seed_step(config.replace(st_impl="xla"),
+                                      SEED_PALLAS_STEPS, BATCH)(
+            state0, images, digits, perms, 0)
+        rel = float(((m_k["loss"] - m_p["loss"]).abs()
+                     / m_p["loss"].abs()).max())
+        if not rel <= SEED_LOSS_TOL:
+            fail(f"seed-parallel pallas vs plain path over "
+                 f"{SEED_PALLAS_STEPS} steps: losses max rel {rel}")
+        say("seeds", card_line, f"st_impl=pallas {SEED_PALLAS_STEPS} "
+            f"seed-parallel steps: launches "
+            f"{ {k: v for k, v in pallas_launches.items() if v} }, losses "
+            f"against the plain path max rel {rel:.3g} (tol {SEED_LOSS_TOL})")
+
+        check_sweep(data, tmp, card_line)
+
+    # timings on phase 5's batch
+    for n_s in (0, *SEED_TIMED):
+        ms, (kern, busy) = seed_step_ms(config, n_s, images, digits)
+        s_eff = max(n_s, 1)
+        say("seeds", card_line, (f"seed-parallel step S={n_s}"
+                                 if n_s else "single-seed step")
+            + f" (inline, batch {BATCH} per replica): {ms:.3f} ms/step "
+            f"(CUDA events, 10 steps), {s_eff * BATCH / ms * 1e3:.1f} "
+            f"images/s; {kern:.0f} kernels and copies per step, "
+            f"{busy:.3f} ms of device time (torch.profiler, 3 steps; "
+            f"{busy / ms:.1%} of the step)")
+    return {**main_launches, **{k: v for k, v in pallas_launches.items()
+                                if k not in main_launches}}
+
+
+def check_sweep(data: str, tmp: str, card_line: str) -> None:
+    """``python -m air_tpu_torch.seed_sweep`` as a user runs it: SEEDS
+    on the generated set, SWEEP_ITERS steps, evals every SWEEP_EVERY."""
+    out = os.path.join(tmp, "sweep")
+    t = time.perf_counter()
+    stdout = run_tool(["air_tpu_torch.seed_sweep",
+                       *map(str, SEEDS), "--cnn", "--data", data,
+                       "--out", out, "--max-iters", str(SWEEP_ITERS),
+                       "--eval-every", str(SWEEP_EVERY),
+                       "--multi-step", str(SWEEP_K)])
+    seconds = time.perf_counter() - t
+    with open(os.path.join(out, "results.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    final = rows[len(SEEDS):]
+    evals = [line for line in stdout.splitlines()
+             if line.startswith("[eval @ ")]
+    want_evals = [f"[eval @ {s}]" for s in range(0, SWEEP_ITERS + 1,
+                                                 SWEEP_EVERY)]
+    if (len(rows) != 2 * len(SEEDS)
+            or not all(r.get("in_flight") for r in rows[:len(SEEDS)])
+            or [r["seed"] for r in final] != list(SEEDS)
+            or any(r["final_step"] != SWEEP_ITERS
+                   or not np.isfinite(r["test_accuracy"]) for r in final)
+            or [e.split(" s")[0] for e in evals] != want_evals
+            or stdout.count("SWEEPRESULT ") != len(SEEDS)):
+        sys.stderr.write(stdout[-4000:])
+        fail(f"seed_sweep: rows {rows}, evals {evals}")
+    say("seeds", card_line, f"python -m air_tpu_torch.seed_sweep "
+        f"{' '.join(map(str, SEEDS))} --cnn: {SWEEP_ITERS} steps, evals "
+        + "; ".join(evals) + f"; results.jsonl rows {final}; "
+        f"{seconds:.1f} s with the process's start")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -1218,6 +1574,11 @@ def main() -> None:
             f"infer latency median of 10: 1 canvas {lat[1]:.3f} ms, 64 "
             f"canvases {lat[64]:.3f} ms; kernels and copies per infer: "
             f"{kern[1]:.0f} (1 canvas), {kern[64]:.0f} (64)")
+
+    # 9. seed-parallel training
+    seed_launches = check_seeds(train_cfg, images, digits, card_line)
+    for row in rows:
+        row["seeds_launches"] = seed_launches.get(row["name"], 0)
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

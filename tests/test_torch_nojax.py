@@ -32,7 +32,8 @@ PORT_MODULES = (
     "air_tpu_torch.train.checkpoint", "air_tpu_torch.train.metrics",
     "air_tpu_torch.train.state", "air_tpu_torch.train.steps",
     "air_tpu_torch.train.evaluate", "air_tpu_torch.train.trainer",
-    "air_tpu_torch.train.visualize", "air_tpu_torch.demo",
+    "air_tpu_torch.train.visualize", "air_tpu_torch.train.multi_seed",
+    "air_tpu_torch.seed_sweep", "air_tpu_torch.demo",
     "air_tpu_torch.embeddings", "air_tpu_torch.tools.demo_tk",
     "air_tpu_torch.tools.embeddings", "air_tpu_torch.tools.headless_demo")
 

@@ -223,13 +223,27 @@ def _images(batch, cs, seed=0):
 
 
 def test_train_step_options_of_later_slices_raise():
+    """pmean_axis (the multi-GPU slice) raises, as does a bg_image without
+    its schedule; schedules_fn resolves the hyperparameters from the knobs
+    the step is given."""
     cfg = AIRConfig(**SMALL)
     with pytest.raises(NotImplementedError):
         make_train_step(cfg, pmean_axis="data")
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, schedules_fn=lambda knobs: {})
     with pytest.raises(ValueError):
         make_train_step(cfg, bg_image=np.zeros(400, np.float32))
+    seen = []
+
+    def schedules_fn(knobs):
+        seen.append(knobs)
+        return {"z_pres_prior_log_odds": {"init": knobs["init"],
+                                          "factor": 0.5, "iters": 2}}
+
+    step = make_train_step(cfg, schedules_fn=schedules_fn)
+    state = create_train_state(cfg, seed=0, device="cpu").replace(step=2)
+    images, targets = _images(4, SMALL["canvas_size"])
+    _, metrics = step(state, images, targets, {"init": 7.0})
+    assert seen == [{"init": 7.0}]
+    assert float(metrics["z_pres_prior_log_odds"]) == 3.5
 
 
 def test_step_draws_come_from_seed_and_step():
