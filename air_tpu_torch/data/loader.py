@@ -222,6 +222,20 @@ def to_device(device):
     return put
 
 
+def gather_batch(images, digits, perm, index: int, batch_size: int,
+                 out=None):
+    """Batch ``index`` of the permutation ``perm`` of the device-resident
+    ``images`` and ``digits``; into the (images, digits) tensors ``out``
+    when given. Past the last full batch the slice is clamped to it, as
+    ``jax.lax.dynamic_slice`` clamps in the JAX package."""
+    lo = min(index * batch_size, len(images) - batch_size)
+    idx = perm[lo:lo + batch_size]
+    if out is None:
+        return images.index_select(0, idx), digits.index_select(0, idx)
+    return (torch.index_select(images, 0, idx, out=out[0]),
+            torch.index_select(digits, 0, idx, out=out[1]))
+
+
 class DeviceDataPipeline:
     """The train set resident on ``device`` and the position of the
     trainer's device-data loop: the host ``TrainLoader``'s epoch
@@ -272,24 +286,24 @@ class DeviceDataPipeline:
         self.index = 0
 
     def perm(self) -> torch.Tensor:
-        """The current epoch's permutation on the device (int64)."""
+        """The current epoch's permutation on the device (int64), in one
+        buffer that keeps its address: a new epoch's is copied into it."""
         key = (self.host.seed, self.epoch)
         if self._perm_key != key:
-            self._perm = torch.from_numpy(
-                np.asarray(self.host._perm(self.epoch), np.int64)).to(
-                    self.device)
+            perm = torch.from_numpy(
+                np.asarray(self.host._perm(self.epoch), np.int64))
+            if self._perm is None:
+                self._perm = perm.to(self.device)
+            else:
+                self._perm.copy_(perm)
             self._perm_key = key
         return self._perm
 
     def gather_batch(self, offset: int = 0):
-        """Batch ``index + offset`` of the epoch as device tensors, without
-        advancing. Past the epoch's last full batch the slice is clamped to
-        it, as ``jax.lax.dynamic_slice`` clamps in the JAX package."""
-        lo = min((self.index + offset) * self.batch_size,
-                 self.n - self.batch_size)
-        idx = self.perm()[lo:lo + self.batch_size]
-        return (self.images.index_select(0, idx),
-                self.digits.index_select(0, idx))
+        """Batch ``index + offset`` of the epoch as device tensors
+        (``gather_batch``), without advancing."""
+        return gather_batch(self.images, self.digits, self.perm(),
+                            self.index + offset, self.batch_size)
 
     def chunk(self, max_steps: int) -> int:
         """How many steps can run from the current position; rolls over to

@@ -19,7 +19,9 @@ On CUDA tensors the Function launches the kernels or raises; on CPU tensors
 it computes the plain versions ``wmac_fwd_plain`` and ``wmac_bwd_plain``
 (the backward as explicit products, not autograd through the plain
 forward). Each launch adds one to ``LAUNCHES["fused_write_accumulate"]`` or
-``LAUNCHES["fused_write_accumulate_bwd"]``, and nothing else does.
+``LAUNCHES["fused_write_accumulate_bwd"]``, and nothing else does but the
+replay of a captured train step, which adds the launches its capture
+counted (``train/fast_pipeline.StepGraph``).
 
 ``geometry`` (the forward's row split, ``st_pallas.geometry``) and
 ``bwd_geometry`` (the backward's clusters, ``cluster.geometry``) compute how

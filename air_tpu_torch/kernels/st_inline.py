@@ -21,7 +21,9 @@ explicit formulas ``attention_read_bwd_plain`` / ``write_accumulate_bwd_plain``
 other than float32, a shape the kernel does not take or tensors on different
 devices; a strided input (the model passes column views such as
 ``shift[:, 0]``) is copied to a contiguous one before the launch. Each
-kernel launch adds one to ``LAUNCHES[<name>]``, and nothing else does.
+kernel launch adds one to ``LAUNCHES[<name>]``, and nothing else does but
+the replay of a captured train step, which adds the launches its capture
+counted (``train/fast_pipeline.StepGraph``).
 
 The forward kernels run one block per (image, band of output rows);
 ``fwd_geometry`` computes the bands. The read backward runs a cluster of

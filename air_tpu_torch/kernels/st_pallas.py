@@ -16,7 +16,8 @@ it computes the plain version ``fused_dots_plain``. The wrappers raise on a
 dtype other than float32, a shape the kernel does not take or tensors on
 different devices. Each launch adds one to ``LAUNCHES[<direction>]``
 (``"pallas_attention_read"`` or ``"pallas_attention_write"``), and nothing
-else does.
+else does but the replay of a captured train step, which adds the launches
+its capture counted (``train/fast_pipeline.StepGraph``).
 
 ``geometry`` computes how a launch splits the work (``csrc/st_resample.cuh``,
 shared with the write-accumulate forward of ``st_fused``): row groups per

@@ -144,19 +144,26 @@ def init_air_params(generator: torch.Generator, config: AIRConfig,
     return params
 
 
-def draw_noise(config: AIRConfig, batch: int, generator=None,
-               device="cuda") -> dict:
-    """Every draw of one forward pass, stacked over the steps."""
+def noise_shapes(config: AIRConfig, batch: int) -> dict:
+    """The shape of each draw of one forward pass (float32 tensors)."""
     t, ws = config.max_steps, config.windows_size
-    kw = dict(generator=generator, dtype=torch.float32, device=device)
-    return {
-        "scale": torch.randn((t, batch, 1), **kw),
-        "shift": torch.randn((t, batch, 2), **kw),
-        "vae_latent": torch.randn((t, batch, config.vae_latent_dimensions),
-                                  **kw),
-        "vae_out": torch.randn((t, batch, ws * ws), **kw),
-        "z_pres_u": torch.rand((t, batch), **kw),
-    }
+    return {"scale": (t, batch, 1), "shift": (t, batch, 2),
+            "vae_latent": (t, batch, config.vae_latent_dimensions),
+            "vae_out": (t, batch, ws * ws), "z_pres_u": (t, batch)}
+
+
+def draw_noise(config: AIRConfig, batch: int, generator=None,
+               device="cuda", out: dict | None = None) -> dict:
+    """Every draw of one forward pass, stacked over the steps; into the
+    tensors of ``out`` (the same keys and shapes) when given, with the same
+    draws."""
+    draws = {}
+    for name, shape in noise_shapes(config, batch).items():
+        fn = torch.rand if name == "z_pres_u" else torch.randn
+        kw = (dict(dtype=torch.float32, device=device) if out is None
+              else {"out": out[name]})
+        draws[name] = fn(shape, generator=generator, **kw)
+    return draws
 
 
 class _Step(NamedTuple):

@@ -13,8 +13,10 @@ images of every train step, 1-2 in every eval) and ``--synthetic-data N``
 count, as ``python -m air_tpu_torch.training`` does). ``--pipeline-unroll``
 above 1 raises ``NotImplementedError``.
 
-The loop is the JAX script's: K-step chunks up to each eval, single steps
-off the cadence; every ``--eval-every`` steps each replica's test accuracy
+The loop is the JAX script's: K-step chunks up to each eval, and a
+shorter chunk off the cadence, where the JAX script runs single steps;
+every chunk replays one captured seed-parallel step (``make_multi_seed_step``)
+once per step. Every ``--eval-every`` steps each replica's test accuracy
 (at its own clock and knobs, draws from ``(EVAL_SEED, step)``); a replica
 flat below ``--stall-accuracy`` past ``--stall-restart`` is re-seeded (a
 new param seed and data order, ``attempt_seed``) and, with ``--rotate``,
@@ -74,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Adam moment storage dtype override")
     p.add_argument("--unroll", type=int, default=None,
                    help="scan_unroll override (kept for parity; the port's "
-                        "attention loop is eager)")
+                        "attention loop is a Python loop)")
     p.add_argument("--compute-dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="AIRConfig.compute_dtype override")
@@ -150,8 +152,8 @@ def main(argv=None) -> dict:
         parser.error("--attempt-stride must be nonzero")
     if args.pipeline_unroll != 1:
         raise NotImplementedError(
-            "--pipeline-unroll > 1: not ported yet (ROADMAP Queue 1, "
-            "captured train step)")
+            "--pipeline-unroll > 1: a replayed CUDA graph has no "
+            "cross-step fusion knob (ROADMAP Queue 1)")
 
     import numpy as np
     import torch
@@ -294,7 +296,6 @@ def main(argv=None) -> dict:
               + (" [CRASHED]" if crashed else ""))
 
     last_eval = -1
-    single_step = None                 # off-cadence 1-step function
     try:
         while step < max_iters:
             if step % args.eval_every == 0:
@@ -352,21 +353,11 @@ def main(argv=None) -> dict:
             k = min(K, remaining,
                     ((step // args.eval_every) + 1) * args.eval_every - step,
                     max_iters - step)
-            if k == K:
-                state, _ = multi(state, images, digits, perms, index,
-                                 knobs_S)
-                index += K
-                step += K
-            else:
-                # off-cadence remainder: single steps
-                if single_step is None:
-                    single_step = make_multi_seed_step(
-                        cfg, 1, B, knob_schedules=knobs_S is not None)
-                for _ in range(k):
-                    state, _ = single_step(state, images, digits, perms,
-                                           index, knobs_S)
-                    index += 1
-                    step += 1
+            # an off-cadence remainder replays the same captured step
+            state, _ = multi(state, images, digits, perms, index, knobs_S,
+                             num_steps=k)
+            index += k
+            step += k
 
         if last_eval != step and not all(c is not None for c in conv_step):
             # the loop ended at max_iters after the last eval: the accuracy

@@ -1,0 +1,337 @@
+"""Train steps replayed as CUDA graphs, and the device-resident K-step loop.
+
+Counterpart of ``air_tpu/train/fast_pipeline.py``. The JAX package runs K
+train steps in one dispatch: ``jax.jit`` of a ``lax.scan`` over the step,
+each step gathering its batch from the device-resident set through the
+epoch's permutation. Here one train step is captured as a CUDA graph on
+its first call (``StepGraph``) and replayed once per step, so the host
+launches one graph a step instead of the step's ~2,500 kernels.
+
+A graph replays the addresses and the host scalars it was captured with,
+so what changes from step to step reaches it through static slots,
+written before each replay:
+
+  * the step's scalars (``steps.host_scalars``: the annealed
+    hyperparameters, the background intensity, Adam's bias corrections and
+    step size), resolved on the host from the Python step as the eager
+    step resolves them; a call's K rows cross to the device in one copy
+    and each replay's row is copied on the device into the scalars slot;
+  * the batch, gathered on the device from the permutation
+    (``data.loader.gather_batch``, clamped to the last full batch);
+  * the draws, from the eager step's generator ``step_generator(seed,
+    step)``, drawn into the noise slots.
+
+The state lives in static buffers that the graph overwrites: a call
+returns a state that aliases them, and the next call takes it without a
+copy (the JAX package's donation). A state the step did not return (a
+fresh or restored one, the instrumented step's) is copied in and not
+changed. Metrics come back as [K] tensors, copied on the device out of
+each replay. The steps give the eager step's bits: the same body
+(``steps.make_step_body``) on the same values.
+
+On the CPU (the tests) the same slots are filled and the body is called
+eagerly; nothing on the card falls back to that path.
+"""
+
+from __future__ import annotations
+
+import gc
+from types import SimpleNamespace
+
+import torch
+
+from air_tpu_torch.data.loader import DeviceDataPipeline, gather_batch
+from air_tpu_torch.kernels import st_fused, st_inline, st_pallas
+from air_tpu_torch.models.air import draw_noise, noise_shapes
+from air_tpu_torch.models.config import AIRConfig
+from air_tpu_torch.train.state import TrainState, make_optimizer
+from air_tpu_torch.train.steps import (TRAIN_METRICS, check_step_options,
+                                       device_scalars, host_scalars,
+                                       make_step_body, step_generator)
+from air_tpu_torch.tree import tree_leaves, tree_unflatten
+
+__all__ = ["CapturedStep", "DeviceDataPipeline", "StepGraph",
+           "make_multi_step", "make_parallel_multi_step"]
+
+# the kernel modules whose LAUNCHES a replay adds to
+KERNEL_MODULES = (st_inline, st_fused, st_pallas)
+# warm-up runs of a step before its capture, on a side stream
+WARMUP = 2
+
+
+def _launches() -> list:
+    return [dict(m.LAUNCHES) for m in KERNEL_MODULES]
+
+
+def _set_launches(counts: list) -> None:
+    for module, c in zip(KERNEL_MODULES, counts):
+        module.LAUNCHES.update(c)
+
+
+def state_leaves(state: TrainState) -> list:
+    """The tensors of a state: params, then Adam's mu and nu."""
+    return (tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+            + tree_leaves(state.opt_state.nu))
+
+
+class StepGraph:
+    """A train step over static tensors. ``fn()`` reads the slots and the
+    state ``buffers`` it closes over and returns (the new state's leaves,
+    a metrics tensor); ``run()`` writes the new leaves into ``buffers`` and
+    returns the metrics, valid until the next run.
+
+    On the card the first ``run`` calls ``fn`` WARMUP times on a side
+    stream and drops the results (the kernels' shared-memory attributes,
+    cuBLAS and cuDNN handles and workspaces are set up outside the
+    capture), then captures ``fn`` and the copy into ``buffers`` as one
+    CUDA graph, with Python's garbage collector held off; every run
+    replays it. A capture or a replay that fails raises. The kernel
+    launches counted while the graph is captured are its launches per
+    replay: each replay adds them to the kernel modules' ``LAUNCHES``, and
+    the warm-up and the capture add nothing. On the CPU each run calls
+    ``fn``."""
+
+    def __init__(self, fn, buffers: list, device: torch.device):
+        self.fn, self.buffers, self.device = fn, buffers, device
+        self.graph = None
+        self.launches = None        # per replay, as _launches() lists them
+        self.metrics = None
+
+    def run(self) -> torch.Tensor:
+        if self.device.type != "cuda":
+            new, metrics = self.fn()
+            torch._foreach_copy_(self.buffers, new)
+            return metrics
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        for module, moved in zip(KERNEL_MODULES, self.launches):
+            for name, n in moved.items():
+                module.LAUNCHES[name] += n
+        return self.metrics
+
+    def _capture(self) -> None:
+        before = _launches()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                self.fn()
+        current.wait_stream(side)
+        _set_launches(before)
+        graph = torch.cuda.CUDAGraph()
+        # a dead reference cycle holding another graph or its memory must
+        # not be collected while this graph captures: freeing them then
+        # invalidates the capture. So collect first, and not during it
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                new, self.metrics = self.fn()
+                torch._foreach_copy_(self.buffers, new)
+        finally:
+            if was_enabled:
+                gc.enable()
+        captured = _launches()
+        self.launches = [{k: after[k] - was[k] for k in after
+                          if after[k] != was[k]}
+                         for after, was in zip(captured, before)]
+        _set_launches(before)
+        self.graph = graph
+
+
+class CapturedStep:
+    """What the single-seed and the seed-parallel captured steps share:
+    the state buffers, a ``StepGraph`` of ``self.body`` over static slots,
+    and a call's loop. A subclass sets ``body`` and ``metric_names`` and
+    gives ``_run`` a call's host rows ({name: [k, ...] float32 host
+    tensor}), ``fill(i, slots)`` (step i's batch), ``draw(i, slots)``
+    (step i's draws) and ``new_slots()`` (the slots, on the first call:
+    ``images``, ``targets``, ``noise``; ``row`` is added here)."""
+
+    body = None
+    metric_names: tuple = ()
+    graph = None
+
+    def _setup(self, state: TrainState, slots, names: list) -> None:
+        buffers = [torch.empty_like(t) for t in state_leaves(state)]
+        n_p = len(tree_leaves(state.params))
+        n_m = len(tree_leaves(state.opt_state.mu))
+        params = tree_unflatten(state.params, buffers[:n_p])
+        mu = tree_unflatten(state.opt_state.mu, buffers[n_p:n_p + n_m])
+        nu = tree_unflatten(state.opt_state.nu, buffers[n_p + n_m:])
+        # fn holds no reference to self: a dropped step, its graph and the
+        # graph's memory pool go when the last reference does, not at some
+        # later collection of a reference cycle
+        body, metric_names = self.body, self.metric_names
+
+        def fn():
+            new_p, new_mu, new_nu, metrics = body(
+                params, mu, nu, slots.images, slots.targets, slots.noise,
+                device_scalars(slots.row, names))
+            return (tree_leaves(new_p) + tree_leaves(new_mu)
+                    + tree_leaves(new_nu),
+                    torch.stack([metrics[k] for k in metric_names]))
+
+        self.slots, self.names, self.trees = slots, names, (params, mu, nu)
+        self.graph = StepGraph(fn, buffers, slots.images.device)
+
+    def _run(self, state: TrainState, rows: dict, fill, draw, new_slots):
+        names = list(rows)
+        rows = torch.stack(list(rows.values()))
+        if self.graph is None:
+            slots = new_slots()
+            slots.row = torch.empty((len(names), *rows.shape[2:]),
+                                    dtype=torch.float32,
+                                    device=slots.images.device)
+            self._setup(state, slots, names)
+        elif names != self.names:
+            raise ValueError(f"step scalars {names}, captured with "
+                             f"{self.names}")
+        graph, slots = self.graph, self.slots
+        leaves = state_leaves(state)
+        if any(a is not b for a, b in zip(leaves, graph.buffers)):
+            torch._foreach_copy_(graph.buffers, leaves)
+        rows = rows.to(graph.device)
+        k = rows.shape[1]
+        out = torch.empty((len(self.metric_names), *rows.shape[1:]),
+                          dtype=torch.float32, device=graph.device)
+        for i in range(k):
+            fill(i, slots)
+            draw(i, slots)
+            slots.row.copy_(rows[:, i])
+            out[:, i].copy_(graph.run())
+        params, mu, nu = self.trees
+        opt = state.opt_state
+        new_state = TrainState(
+            params=params,
+            opt_state=opt._replace(
+                count=opt.count + k, mu=mu, nu=nu,
+                schedule_count=(None if opt.schedule_count is None
+                                else opt.schedule_count + k)),
+            step=state.step + k, seed=state.seed)
+        return new_state, dict(zip(self.metric_names, out.unbind()))
+
+
+def copy_noise(slots, noise) -> None:
+    """Given draws (a dict of tensors or arrays) into the noise slots."""
+    for name, t in slots.noise.items():
+        t.copy_(torch.as_tensor(noise[name]))
+
+
+class MultiStep(CapturedStep):
+    """``make_multi_step``'s step: ``__call__`` runs ``num_steps`` (or a
+    call's ``num_steps``) steps on batches of a device-resident set,
+    ``step`` one step on a given batch; one captured train step replayed
+    per step."""
+
+    def __init__(self, config: AIRConfig, num_steps: int, batch_size: int,
+                 bg_image=None, bg_schedule=None):
+        check_step_options(bg_image, bg_schedule)
+        self.config, self.num_steps = config, num_steps
+        self.batch_size = batch_size
+        self.bg_schedule = bg_schedule if bg_image is not None else None
+        self.optimizer = make_optimizer(config)
+        self.body = make_step_body(config, bg_image)
+        self.metric_names = TRAIN_METRICS + (
+            ("bg_intensity",) if bg_image is not None else ())
+
+    def __call__(self, state: TrainState, images, digits, perm, start,
+                 noise=None, num_steps: int | None = None):
+        """Steps on batches ``start, start + 1, ...`` of ``perm``: (the
+        state after them, {metric: [k] tensor})."""
+        k = self.num_steps if num_steps is None else num_steps
+        start = int(start)
+
+        def fill(i, slots):
+            gather_batch(images, digits, perm, start + i, self.batch_size,
+                         out=(slots.images, slots.targets))
+
+        return self._steps(state, k, fill, noise, images, digits)
+
+    def step(self, state: TrainState, images, targets, noise=None):
+        """One step on the batch ``images``, ``targets``: (the state after
+        it, {metric: 0-d tensor})."""
+        def fill(i, slots):
+            slots.images.copy_(images)
+            slots.targets.copy_(targets)
+
+        state, metrics = self._steps(state, 1, fill,
+                                     None if noise is None else [noise],
+                                     images, targets)
+        return state, {k: v[0] for k, v in metrics.items()}
+
+    def _steps(self, state: TrainState, k: int, fill, noise, images,
+               targets):
+        config, b = self.config, self.batch_size
+        device = images.device
+        opt = state.opt_state
+        rows = [host_scalars(
+            config, self.optimizer, state.step + i,
+            opt._replace(count=opt.count + i, schedule_count=(
+                None if opt.schedule_count is None
+                else opt.schedule_count + i)),
+            bg_schedule=self.bg_schedule) for i in range(k)]
+
+        def draw(i, slots):
+            if noise is not None:
+                copy_noise(slots, noise[i])
+            else:
+                draw_noise(config, b, step_generator(
+                    state.seed, state.step + i, device), device,
+                    out=slots.noise)
+
+        def new_slots():
+            return SimpleNamespace(
+                images=torch.empty((b, images.shape[-1]),
+                                   dtype=torch.float32, device=device),
+                targets=torch.empty((b,), dtype=targets.dtype,
+                                    device=device),
+                noise={name: torch.empty(shape, dtype=torch.float32,
+                                         device=device)
+                       for name, shape in noise_shapes(config, b).items()})
+
+        return self._run(state, {name: torch.tensor([r[name] for r in rows],
+                                                    dtype=torch.float32)
+                                 for name in rows[0]},
+                         fill, draw, new_slots)
+
+
+def make_multi_step(config: AIRConfig, num_steps: int, batch_size: int,
+                    bg_image=None, bg_schedule=None,
+                    pipeline_unroll: int = 1) -> MultiStep:
+    """Returns ``multi_step(state, images, digits, perm, start, noise=None,
+    num_steps=None) -> (state, metrics)``: ``num_steps`` train steps, step i
+    on rows ``perm[lo:lo + batch_size]``, ``lo = (start + i) * batch_size``
+    (clamped to the last full batch), of the device-resident ``images``
+    [N, canvas**2] and ``digits`` [N]. Metrics come back as [k] tensors. A
+    call's ``num_steps`` runs a shorter (or longer) chunk through the same
+    graph. ``noise``, k dicts of draws, overrides the step's generator (the
+    tests feed JAX's draws). ``multi_step.step(state, images, targets)``
+    runs one step on a given batch (the host loop's).
+
+    The returned state aliases the step's buffers, which its next call
+    overwrites: a caller that keeps a state across calls clones it. A
+    state it did not return is copied in and left unchanged.
+
+    ``pipeline_unroll`` other than 1 raises: the JAX package's scan unroll
+    lets XLA fuse across optimizer steps, and a replayed CUDA graph has no
+    such knob."""
+    if pipeline_unroll != 1:
+        raise NotImplementedError(
+            "pipeline_unroll > 1: a replayed CUDA graph has no cross-step "
+            "fusion knob (ROADMAP Queue 1)")
+    return MultiStep(config, num_steps, batch_size, bg_image, bg_schedule)
+
+
+def make_parallel_multi_step(config: AIRConfig, num_steps: int,
+                             batch_size: int, mesh=None, donate=True,
+                             bg_image=None, bg_schedule=None,
+                             pipeline_unroll: int = 1):
+    """The data-parallel K-step of the JAX package: comes with the
+    multi-GPU slice of the port."""
+    raise NotImplementedError(
+        "make_parallel_multi_step comes with the multi-GPU slice of the "
+        "port (ROADMAP Queue 1)")

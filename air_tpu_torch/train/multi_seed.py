@@ -25,25 +25,35 @@ Each replica keeps its own clock (``state.step``, [S] on the host), so a
 re-seeded replica (``reinit_replica``) restarts its annealing schedules,
 and ``rotation_knobs`` give each replica its own bootstrap-schedule variant
 as [S] inputs of the schedules (``schedules_from_knobs``).
+
+The step is a host part (``replica_host_scalars``: each replica's annealed
+hyperparameters and Adam scalars from its clock and knobs; the draws) and
+a body on tensors only (``make_replica_body``). ``make_replica_step`` runs
+both eagerly; ``make_multi_seed_step`` captures the body as a CUDA graph
+and replays it once per step, the [S] rows, batches and draws written into
+static slots before each replay (``fast_pipeline.CapturedStep``).
 """
 
 from __future__ import annotations
 
 import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from air_tpu_torch.data.loader import TrainLoader
-from air_tpu_torch.models.air import _numeric_flags, air_forward, draw_noise
+from air_tpu_torch.models.air import (_numeric_flags, air_forward,
+                                      draw_noise, noise_shapes)
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.ops.schedules import resolve_annealed
-from air_tpu_torch.train.state import (TrainState, apply_updates,
-                                       create_train_state,
+from air_tpu_torch.train.fast_pipeline import CapturedStep, copy_noise
+from air_tpu_torch.train.state import (REPLICA_SCALARS, TrainState,
+                                       apply_updates, create_train_state,
                                        global_norm_replicas, make_optimizer,
                                        stack_train_states)
-from air_tpu_torch.train.steps import step_generator
+from air_tpu_torch.train.steps import TRAIN_METRICS, step_generator
 from air_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # the seed of the sweep's eval draws, (EVAL_SEED, step): the counterpart of
@@ -222,14 +232,60 @@ def replica_hparams(config: AIRConfig, steps: torch.Tensor, knobs_S,
 
 
 def replica_noise(config: AIRConfig, batch: int, seeds, steps,
-                  device) -> dict:
+                  device, out: dict | None = None) -> dict:
     """Every replica's draws of one train step, stacked [S, ...]: replica r
     draws from ``step_generator(seeds[r], steps[r])``, as the single-seed
-    step of that seed and step does."""
+    step of that seed and step does; into the [S, ...] tensors of ``out``
+    when given."""
     draws = [draw_noise(config, batch, step_generator(seed, step, device),
-                        device)
-             for seed, step in zip(seeds, steps.tolist())]
+                        device,
+                        out=None if out is None else {k: v[r] for k, v in
+                                                      out.items()})
+             for r, (seed, step) in enumerate(zip(seeds, steps.tolist()))]
+    if out is not None:
+        return out
     return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+
+def replica_host_scalars(config: AIRConfig, optimizer, steps: torch.Tensor,
+                         opt_state, knobs_S=None) -> dict:
+    """The host part of the seed-parallel step at each replica's clock
+    ([S] ``steps``) and knobs: each hyperparameter the schedules anneal, as
+    ``replica_hparams`` resolves it, and Adam's rows
+    (``Optimizer.host_scalars_replicas``); {name: [S] float32 host
+    tensor}."""
+    schedules = (config.schedules if knobs_S is None
+                 else schedules_from_knobs(config.schedules, knobs_S))
+    hp = resolve_annealed(schedules, config.annealable_defaults(), steps)
+    row = {name: hp[name].expand(len(steps)) for name in schedules}
+    row.update(zip(REPLICA_SCALARS,
+                   optimizer.host_scalars_replicas(opt_state)))
+    return row
+
+
+def _replica_grads(config: AIRConfig, params, images, targets, noise, hp,
+                   hp_dims):
+    """Every replica's forward pass under ``torch.func.vmap`` and the
+    gradient of each replica's loss: (grads, {loss, accuracy,
+    reconstruction_loss, kl_loss: [S]})."""
+    def losses(params, images, targets, noise, hp):
+        out = air_forward(params, config, images, targets, train=True,
+                          hparams=hp, noise=noise)
+        return (out.loss, out.accuracy, out.reconstruction_loss.mean(),
+                out.kl_loss.mean())
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with no_vmap_fallback():
+        loss, accuracy, recon, kl = vmap(
+            losses, in_dims=(0, 0, 0, 0, hp_dims))(
+                leaves, images, targets, noise, hp)
+    if images.device.type == "cuda":
+        _numeric_flags()  # the backward's products too
+    grads = tree_unflatten(leaves, torch.autograd.grad(
+        loss.sum(), tree_leaves(leaves)))
+    return grads, {"loss": loss.detach(), "accuracy": accuracy,
+                   "reconstruction_loss": recon.detach(),
+                   "kl_loss": kl.detach()}
 
 
 def replica_gradients(config: AIRConfig, state: TrainState, images,
@@ -242,41 +298,93 @@ def replica_gradients(config: AIRConfig, state: TrainState, images,
     reconstruction_loss and kl_loss, [S] each; the hyperparameters
     (``replica_hparams``)."""
     device = images.device
-    batch = targets.shape[1]
     hp, hp_dims = replica_hparams(config, state.step, knobs_S, device)
     if noise is None:
-        noise = replica_noise(config, batch, state.seed, state.step, device)
-
-    def losses(params, images, targets, noise, hp):
-        out = air_forward(params, config, images, targets, train=True,
-                          hparams=hp, noise=noise)
-        return (out.loss, out.accuracy, out.reconstruction_loss.mean(),
-                out.kl_loss.mean())
-
-    params = tree_map(lambda p: p.detach().requires_grad_(True),
-                      state.params)
-    with no_vmap_fallback():
-        loss, accuracy, recon, kl = vmap(
-            losses, in_dims=(0, 0, 0, 0, hp_dims))(
-                params, images, targets, noise, hp)
-    if device.type == "cuda":
-        _numeric_flags()  # the backward's products too
-    grads = tree_unflatten(params, torch.autograd.grad(
-        loss.sum(), tree_leaves(params)))
-    return grads, {"loss": loss.detach(), "accuracy": accuracy,
-                   "reconstruction_loss": recon.detach(),
-                   "kl_loss": kl.detach()}, hp
+        noise = replica_noise(config, targets.shape[1], state.seed,
+                              state.step, device)
+    grads, metrics = _replica_grads(config, state.params, images, targets,
+                                    noise, hp, hp_dims)
+    return grads, metrics, hp
 
 
-def replica_batch(images, digits, perms_S, index: int, batch_size: int):
+def make_replica_body(config: AIRConfig):
+    """Returns ``body(params, mu, nu, images, targets, noise, scalars) ->
+    (params, mu, nu, metrics)``: one seed-parallel train step on tensors
+    only, the counterpart of ``steps.make_step_body``. Leaves lead with the
+    replica axis [S]; ``scalars`` holds the rows of
+    ``replica_host_scalars`` as [S] tensors on the device; metrics are
+    [S] each (``steps.TRAIN_METRICS``). Nothing it is given is changed."""
+    optimizer = make_optimizer(config)
+    defaults = config.annealable_defaults()
+
+    def body(params, mu, nu, images, targets, noise, scalars):
+        hp = {**defaults, **{k: v for k, v in scalars.items()
+                             if k in defaults}}
+        hp_dims = {k: 0 if k in scalars else None for k in hp}
+        grads, metrics = _replica_grads(config, params, images, targets,
+                                        noise, hp, hp_dims)
+        updates, new_mu, new_nu = optimizer.apply_replicas(grads, mu, nu,
+                                                           scalars)
+        log_odds = hp["z_pres_prior_log_odds"]
+        if isinstance(log_odds, torch.Tensor):
+            log_odds = log_odds.clone()
+        else:
+            log_odds = torch.full(targets.shape[:1], log_odds,
+                                  dtype=torch.float32, device=images.device)
+        metrics.update(grad_norm=global_norm_replicas(grads),
+                       z_pres_prior_log_odds=log_odds)
+        return apply_updates(params, updates), new_mu, new_nu, metrics
+
+    return body
+
+
+def make_replica_step(config: AIRConfig, knob_schedules: bool = False):
+    """Returns ``step(state_S, images, targets, knobs_S=None, noise=None) ->
+    (state_S, metrics)``: one seed-parallel train step on every replica's
+    own batch (``images`` [S, B, D], ``targets`` [S, B]), run eagerly: the
+    host part (``replica_host_scalars``, one copy to the device; the draws,
+    ``replica_noise``, or ``noise`` [S, ...]) and the body
+    (``make_replica_body``). Metrics are [S] each. ``state_S`` is left
+    unchanged. The eager form of ``make_multi_seed_step``'s step."""
+    optimizer = make_optimizer(config)
+    body = make_replica_body(config)
+
+    def step(state: TrainState, images, targets, knobs_S=None, noise=None):
+        _check_knobs(knob_schedules, knobs_S)
+        device = images.device
+        row = replica_host_scalars(config, optimizer, state.step,
+                                   state.opt_state, knobs_S)
+        scalars = dict(zip(row, torch.stack(list(row.values())).to(
+            device, non_blocking=True)))
+        if noise is None:
+            noise = replica_noise(config, targets.shape[1], state.seed,
+                                  state.step, device)
+        params, mu, nu, metrics = body(state.params, state.opt_state.mu,
+                                       state.opt_state.nu, images, targets,
+                                       noise, scalars)
+        return state.replace(
+            params=params, opt_state=optimizer.advance(state.opt_state, mu,
+                                                       nu),
+            step=state.step + 1), metrics
+
+    return step
+
+
+def replica_batch(images, digits, perms_S, index: int, batch_size: int,
+                  out=None):
     """Batch ``index`` of every replica's epoch permutation of the shared
     ``images`` / ``digits``: [S, B, D] and [S, B], clamped to the last full
-    batch as the single-seed loop's gather is."""
+    batch as the single-seed loop's gather is; into the (images, digits)
+    tensors ``out`` when given."""
     n, n_rep = images.shape[0], perms_S.shape[0]
     lo = min(index * batch_size, n - batch_size)
     rows = perms_S[:, lo:lo + batch_size].reshape(-1)
-    return (images.index_select(0, rows).reshape(n_rep, batch_size, -1),
-            digits.index_select(0, rows).reshape(n_rep, batch_size))
+    if out is None:
+        return (images.index_select(0, rows).reshape(n_rep, batch_size, -1),
+                digits.index_select(0, rows).reshape(n_rep, batch_size))
+    torch.index_select(images, 0, rows, out=out[0].view(len(rows), -1))
+    torch.index_select(digits, 0, rows, out=out[1].view(-1))
+    return out
 
 
 def _check_knobs(knob_schedules: bool, knobs_S) -> None:
@@ -286,59 +394,88 @@ def _check_knobs(knob_schedules: bool, knobs_S) -> None:
                          f"{'set' if knobs_S is not None else 'None'}")
 
 
+class MultiSeedStep(CapturedStep):
+    """``make_multi_seed_step``'s step: one captured seed-parallel train
+    step (``make_replica_body``), replayed once per step."""
+
+    def __init__(self, config: AIRConfig, num_steps: int, batch_size: int,
+                 knob_schedules: bool):
+        self.config, self.num_steps = config, num_steps
+        self.batch_size, self.knob_schedules = batch_size, knob_schedules
+        self.optimizer = make_optimizer(config)
+        self.body = make_replica_body(config)
+        self.metric_names = TRAIN_METRICS
+
+    def __call__(self, state_S: TrainState, images, digits, perms_S, start,
+                 knobs_S=None, noise=None, num_steps: int | None = None):
+        _check_knobs(self.knob_schedules, knobs_S)
+        config, b = self.config, self.batch_size
+        k = self.num_steps if num_steps is None else num_steps
+        start, n_rep = int(start), len(state_S.seed)
+        device = images.device
+        opt = state_S.opt_state
+        rows = [replica_host_scalars(
+            config, self.optimizer, state_S.step + i,
+            opt._replace(count=opt.count + i, schedule_count=(
+                None if opt.schedule_count is None
+                else opt.schedule_count + i)), knobs_S) for i in range(k)]
+
+        def fill(i, slots):
+            replica_batch(images, digits, perms_S, start + i, b,
+                          out=(slots.images, slots.targets))
+
+        def draw(i, slots):
+            if noise is not None:
+                copy_noise(slots, noise[i])
+            else:
+                replica_noise(config, b, state_S.seed, state_S.step + i,
+                              device, out=slots.noise)
+
+        def new_slots():
+            return SimpleNamespace(
+                images=torch.empty((n_rep, b, images.shape[-1]),
+                                   dtype=torch.float32, device=device),
+                targets=torch.empty((n_rep, b), dtype=digits.dtype,
+                                    device=device),
+                noise={name: torch.empty((n_rep, *shape),
+                                         dtype=torch.float32, device=device)
+                       for name, shape in noise_shapes(config, b).items()})
+
+        return self._run(state_S, {name: torch.stack([r[name] for r in rows])
+                                   for name in rows[0]},
+                         fill, draw, new_slots)
+
+
 def make_multi_seed_step(config: AIRConfig, num_steps: int, batch_size: int,
                          knob_schedules: bool = False,
-                         pipeline_unroll: int = 1):
+                         pipeline_unroll: int = 1) -> MultiSeedStep:
     """Returns ``multi(state_S, images, digits, perms_S, start,
-    knobs_S=None, noise=None) -> (state_S, metrics)``: ``num_steps`` train
-    steps of every replica, step i of replica r on rows ``perms_S[r, lo:lo +
-    B]``, ``lo = (start + i) * B``, of the shared device-resident ``images``
-    and ``digits`` (clamped to the last full batch, as the single-seed
-    loop's gather). ``perms_S`` is [S, n], one epoch permutation per
-    replica (``multi_seed_perms``); metrics come back as [K, S] tensors.
-    ``state_S`` is left unchanged.
+    knobs_S=None, noise=None, num_steps=None) -> (state_S, metrics)``:
+    ``num_steps`` train steps of every replica, step i of replica r on rows
+    ``perms_S[r, lo:lo + B]``, ``lo = (start + i) * B``, of the shared
+    device-resident ``images`` and ``digits`` (clamped to the last full
+    batch, as the single-seed loop's gather). ``perms_S`` is [S, n], one
+    epoch permutation per replica (``multi_seed_perms``); metrics come back
+    as [K, S] tensors. A call's ``num_steps`` runs a shorter chunk through
+    the same graph.
+
+    The step is captured once as a CUDA graph and replayed once per step
+    (``fast_pipeline.CapturedStep``); each replica's clock, knobs, Adam
+    scalars and draws reach it through static slots. The returned state
+    aliases the step's buffers, which its next call overwrites: a caller
+    that keeps a state across calls clones it. A state it did not return
+    (a fresh one, ``reinit_replica``'s) is copied in and left unchanged.
 
     ``knob_schedules=True`` takes ``knobs_S`` (``stack_knobs``), each
     replica's bootstrap-schedule variant. ``pipeline_unroll`` other than 1
-    (the JAX package's scan unroll) raises: the port's step is eager.
-    ``noise``, K dicts of stacked [S, ...] draws, overrides the replicas'
-    generators (the tests feed JAX's draws)."""
+    (the JAX package's scan unroll) raises: a replayed CUDA graph has no
+    cross-step fusion knob. ``noise``, K dicts of stacked [S, ...] draws,
+    overrides the replicas' generators (the tests feed JAX's draws)."""
     if pipeline_unroll != 1:
         raise NotImplementedError(
-            "pipeline_unroll > 1: not ported yet (ROADMAP Queue 1, captured "
-            "train step)")
-    optimizer = make_optimizer(config)
-
-    def step(state: TrainState, images, targets, knobs_S, noise):
-        grads, metrics, hp = replica_gradients(config, state, images,
-                                               targets, knobs_S, noise)
-        updates, opt_state = optimizer.update_replicas(grads,
-                                                       state.opt_state)
-        new_state = state.replace(
-            params=apply_updates(state.params, updates),
-            opt_state=opt_state, step=state.step + 1)
-        log_odds = hp["z_pres_prior_log_odds"]
-        if not isinstance(log_odds, torch.Tensor):
-            log_odds = torch.full(targets.shape[:1], log_odds,
-                                  dtype=torch.float32, device=images.device)
-        return new_state, {**metrics,
-                           "grad_norm": global_norm_replicas(grads),
-                           "z_pres_prior_log_odds": log_odds}
-
-    def multi(state_S: TrainState, images, digits, perms_S, start: int,
-              knobs_S=None, noise=None):
-        _check_knobs(knob_schedules, knobs_S)
-        metrics = []
-        for i in range(num_steps):
-            state_S, m = step(
-                state_S, *replica_batch(images, digits, perms_S,
-                                        int(start) + i, batch_size),
-                knobs_S, None if noise is None else noise[i])
-            metrics.append(m)
-        return state_S, {k: torch.stack([m[k] for m in metrics])
-                         for k in metrics[0]}
-
-    return multi
+            "pipeline_unroll > 1: a replayed CUDA graph has no cross-step "
+            "fusion knob (ROADMAP Queue 1)")
+    return MultiSeedStep(config, num_steps, batch_size, knob_schedules)
 
 
 def make_multi_seed_eval(config: AIRConfig, knob_schedules: bool = False):

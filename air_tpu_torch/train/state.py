@@ -29,6 +29,12 @@ int64 tensors on the host, one clock per replica (a re-seeded replica's
 restarts at 0); ``seed`` is a list of S ints. ``Optimizer.update_replicas``
 updates it with each replica's own bias corrections, step size and clip
 norm, computed as ``update`` computes them, with no per-replica loop.
+
+An update is a host part and a device part. ``host_scalars`` (and
+``host_scalars_replicas``) computes the bias corrections and the step size
+from the counts on the host; ``apply`` (and ``apply_replicas``) takes them
+as floats or as 0-d (or [S]) tensors on the device, which a step replayed
+as a CUDA graph reads from its slots (``train/fast_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from air_tpu_torch.ops.schedules import annealed_value
 from air_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+# the rows of Optimizer.host_scalars_replicas
+REPLICA_SCALARS = ("c1", "c2", "step_size")
 
 
 class AdamState(NamedTuple):
@@ -76,6 +84,11 @@ def _bias_correction(decay: float, count: int) -> float:
     f32 = dict(dtype=torch.float32)
     return (1.0 - torch.pow(torch.tensor(decay, **f32),
                             torch.tensor(float(count), **f32))).item()
+
+
+def _f32_reciprocal(v: float) -> float:
+    """``1 / v`` in float32 (``v`` a float32 value), as a Python float."""
+    return torch.reciprocal(torch.tensor(v, dtype=torch.float32)).item()
 
 
 def bias_correction_replicas(decay: float, count: torch.Tensor) -> torch.Tensor:
@@ -144,21 +157,46 @@ class Optimizer:
         return AdamState(0, tree_map(zeros, params), tree_map(zeros, params),
                          0 if self.lr_schedule is not None else None)
 
-    def update(self, grads, state: AdamState):
-        grads = self._frozen(grads)
-        if self.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+    def host_scalars(self, state: AdamState) -> dict:
+        """The host part of the update from ``state``: the bias
+        corrections of the next count (``c1``, ``c2``), their float32
+        reciprocals (``inv_c1``, ``inv_c2``) and the step size, Python
+        floats that are float32 values."""
         count = state.count + 1
         c1, c2 = _bias_correction(B1, count), _bias_correction(B2, count)
         if self.lr_schedule is None:
             step_size = -_f32(self.learning_rate)
-            schedule_count = None
         else:
             step_size = -annealed_value(self.lr_schedule,
                                         state.schedule_count).item()
-            schedule_count = state.schedule_count + 1
-        return self._adam(grads, state, count, c1, c2, step_size,
-                          schedule_count)
+        return {"c1": c1, "c2": c2, "inv_c1": _f32_reciprocal(c1),
+                "inv_c2": _f32_reciprocal(c2), "step_size": step_size}
+
+    def host_scalars_replicas(self, state: AdamState) -> torch.Tensor:
+        """``host_scalars`` of S stacked replicas, each computed as
+        ``host_scalars`` computes it: a [3, S] float32 host tensor of the
+        rows ``c1``, ``c2`` and ``step_size`` (REPLICA_SCALARS)."""
+        count = state.count + 1
+        if self.lr_schedule is None:
+            step_size = torch.full(count.shape, -_f32(self.learning_rate))
+        else:
+            step_size = -annealed_value(self.lr_schedule,
+                                        state.schedule_count)
+        return torch.stack([bias_correction_replicas(B1, count),
+                            bias_correction_replicas(B2, count), step_size])
+
+    @staticmethod
+    def advance(state: AdamState, mu, nu) -> AdamState:
+        """The AdamState after one update: the counts (ints or [S] host
+        tensors) one on, the new moments."""
+        schedule_count = (None if state.schedule_count is None
+                          else state.schedule_count + 1)
+        return AdamState(state.count + 1, mu, nu, schedule_count)
+
+    def update(self, grads, state: AdamState):
+        updates, mu, nu = self.apply(grads, state.mu, state.nu,
+                                     self.host_scalars(state))
+        return updates, self.advance(state, mu, nu)
 
     def update_replicas(self, grads, state: AdamState):
         """``update`` of S stacked replicas: [S, ...] gradient and moment
@@ -166,23 +204,49 @@ class Optimizer:
         tensors. Each replica's bias corrections and step size are computed
         on the host in float32, as ``update`` computes them, and reach the
         device in one copy; each replica is clipped by its own norm."""
+        rows = self.host_scalars_replicas(state).to(
+            tree_leaves(grads)[0].device, non_blocking=True)
+        updates, mu, nu = self.apply_replicas(
+            grads, state.mu, state.nu, dict(zip(REPLICA_SCALARS, rows)))
+        return updates, self.advance(state, mu, nu)
+
+    def apply(self, grads, mu, nu, scalars: dict):
+        """The device part of ``update``: the freeze, the clip and Adam on
+        the moment trees ``mu`` and ``nu``, from ``host_scalars`` (floats,
+        or 0-d tensors on the device that hold them). Returns (updates, mu,
+        nu).
+
+        PyTorch divides a tensor on the card by a host scalar as the
+        product with the scalar's float32 reciprocal, and on the CPU
+        truly; the bias corrections are applied so, by ``inv_c1`` and
+        ``inv_c2`` on the card, whether they come as floats or as device
+        tensors: a step with them in device slots keeps the bits of one
+        that passes floats."""
+        grads = self._frozen(grads)
+        if self.clip_norm is not None:
+            grads = clip_by_global_norm(grads, self.clip_norm)
+
+        def unbias(m, name):
+            if m.is_cuda:
+                return m * scalars["inv_" + name]
+            return m / scalars[name]
+
+        return self._adam(grads, mu, nu, unbias,
+                          lambda g: scalars["step_size"])
+
+    def apply_replicas(self, grads, mu, nu, scalars: dict):
+        """``apply`` of S stacked replicas, from [S] device tensors ``c1``,
+        ``c2`` and ``step_size`` (``host_scalars_replicas``); each replica
+        is clipped by its own norm."""
         grads = self._frozen(grads)
         if self.clip_norm is not None:
             grads = clip_by_global_norm_replicas(grads, self.clip_norm)
-        count = state.count + 1
-        if self.lr_schedule is None:
-            step_size = torch.full(count.shape, -_f32(self.learning_rate))
-            schedule_count = None
-        else:
-            step_size = -annealed_value(self.lr_schedule,
-                                        state.schedule_count)
-            schedule_count = state.schedule_count + 1
-        c1, c2, step_size = torch.stack([
-            bias_correction_replicas(B1, count),
-            bias_correction_replicas(B2, count),
-            step_size]).to(tree_leaves(grads)[0].device, non_blocking=True)
-        return self._adam(grads, state, count, c1, c2, step_size,
-                          schedule_count)
+
+        def unbias(m, name):
+            return m / _per_replica(scalars[name], m)
+
+        return self._adam(grads, mu, nu, unbias,
+                          lambda g: _per_replica(scalars["step_size"], g))
 
     def _frozen(self, grads):
         """The ``background`` gradient zeroed under ``freeze_background``."""
@@ -191,26 +255,22 @@ class Optimizer:
         return {k: torch.zeros_like(g) if k == "background" else g
                 for k, g in grads.items()}
 
-    def _adam(self, grads, state: AdamState, count, c1, c2, step_size,
-              schedule_count):
-        """Adam's moments and updates from the bias corrections and step
-        size: floats, or [S] tensors of stacked replicas."""
-        def scale(v, leaf):
-            return v if isinstance(v, float) else _per_replica(v, leaf)
-
+    def _adam(self, grads, mu_tree, nu_tree, unbias, step_size):
+        """Adam's updates and moments: ``unbias(moment, "c1" or "c2")``
+        divides by a bias correction, ``step_size(leaf)`` is the step size
+        shaped for a gradient leaf."""
         new_mu, new_nu, updates = [], [], []
-        for g, m, v in zip(tree_leaves(grads), tree_leaves(state.mu),
-                           tree_leaves(state.nu)):
+        for g, m, v in zip(tree_leaves(grads), tree_leaves(mu_tree),
+                           tree_leaves(nu_tree)):
             # float32 math; bfloat16 moments are promoted on read
             mu = B1 * m.float() + (1.0 - B1) * g
             nu = B2 * v.float() + (1.0 - B2) * (g * g)
-            u = (mu / scale(c1, g)) / (torch.sqrt(nu / scale(c2, g)) + EPS)
-            updates.append(scale(step_size, g) * u)
+            u = unbias(mu, "c1") / (torch.sqrt(unbias(nu, "c2")) + EPS)
+            updates.append(step_size(g) * u)
             new_mu.append(mu.to(self.storage_dtype))
             new_nu.append(nu.to(self.storage_dtype))
         return (tree_unflatten(grads, updates),
-                AdamState(count, tree_unflatten(grads, new_mu),
-                          tree_unflatten(grads, new_nu), schedule_count))
+                tree_unflatten(grads, new_mu), tree_unflatten(grads, new_nu))
 
 
 def make_optimizer(config: AIRConfig) -> Optimizer:

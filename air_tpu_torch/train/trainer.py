@@ -12,13 +12,18 @@ Counterpart of ``air_tpu/train/trainer.py``:
     device-data loop only, as in the JAX package);
   * per-iteration stdout line (reference training.py:226).
 
-Two loops. The host loop feeds each step a batch from the prefetching
-``TrainLoader``. The device-data loop keeps the train set on the card
-(``DeviceDataPipeline``) and runs up to ``multi_step`` steps per host
-iteration, each gathering its batch on the card through the epoch's
+Two loops, both through one train step captured as a CUDA graph and
+replayed once per step (``fast_pipeline.make_multi_step``; on the CPU its
+body runs eagerly). The host loop feeds each step a batch from the
+prefetching ``TrainLoader``. The device-data loop keeps the train set on
+the card (``DeviceDataPipeline``) and runs up to ``multi_step`` steps per
+host iteration, each gathering its batch on the card through the epoch's
 permutation; the host fetches values only at log and event boundaries. The
-JAX package fuses those steps into one dispatch; here they run eagerly, one
-train step after another, with the same numerics as the host loop.
+JAX package runs those steps as one jitted scan; both give the eager
+step's numerics. The instrumented gradient-summary step runs eagerly
+(``make_train_step(with_grad_stats=True)``); a state it returns, a restored
+one or a restart's fresh one is copied into the captured step's buffers on
+its next call, and a schedule rotation rebuilds (and so recaptures) it.
 
 Train-step draws come from ``(state.seed, state.step)``
 (``steps.step_generator``); eval draws from ``(seed ^ 0x5EED, step)``, where
@@ -45,6 +50,7 @@ from air_tpu_torch.train.checkpoint import (checkpoint_meta,
                                             latest_checkpoint,
                                             load_checkpoint, save_checkpoint)
 from air_tpu_torch.train.evaluate import evaluate_params
+from air_tpu_torch.train.fast_pipeline import make_multi_step
 from air_tpu_torch.train.metrics import (MetricsWriter, named_leaves,
                                          summarize_outputs, to_host,
                                          variable_summaries)
@@ -54,6 +60,7 @@ from air_tpu_torch.train.steps import (make_eval_step,
                                        make_train_step, step_generator)
 from air_tpu_torch.train.visualize import (save_grid_png,
                                            visualize_reconstructions)
+from air_tpu_torch.utils.profiling import StepTimer
 
 
 @dataclasses.dataclass
@@ -112,8 +119,8 @@ class TrainerConfig:
     # per host iteration
     device_data: bool = False
     multi_step: int = 50
-    # the JAX package's scan unroll of its fused K-step dispatch; the port
-    # runs its steps eagerly and has no such unroll (1 only)
+    # the JAX package's scan unroll of its fused K-step dispatch; a replayed
+    # CUDA graph has no such knob (1 only)
     pipeline_unroll: int = 1
     # data parallelism over several cards: not ported (ROADMAP Queue 1,
     # multi-GPU)
@@ -266,8 +273,9 @@ class Trainer:
         tcfg = trainer_config
         if tcfg.data_parallel or tcfg.pipeline_unroll != 1:
             raise NotImplementedError(
-                "data_parallel and pipeline_unroll > 1 are not ported "
-                "(ROADMAP Queue 1: multi-GPU, captured train step)")
+                "data_parallel (ROADMAP Queue 1, multi-GPU) and "
+                "pipeline_unroll > 1 (a replayed CUDA graph has no "
+                "cross-step fusion knob; ROADMAP Queue 1) are not ported")
         self.config = model_config.replace(train=True)
         # the ACTIVE training config: starts as the base config; restart
         # schedule rotation replaces it per attempt. Evaluation always
@@ -364,10 +372,16 @@ class Trainer:
 
     def _build_train_steps(self):
         """(Re)build the train steps from ``self.train_config`` — called at
-        init and whenever a restart rotates the schedule."""
+        init and whenever a restart rotates the schedule: the captured step
+        of both loops (captured on its first call) and the eager
+        instrumented step."""
         bg_kw = {"bg_image": self.tcfg.bg_image,
                  "bg_schedule": self.tcfg.bg_schedule}
-        self.train_step = make_train_step(self.train_config, **bg_kw)
+        self.multi_step = make_multi_step(self.train_config,
+                                          self.tcfg.multi_step,
+                                          self.tcfg.batch_size, **bg_kw)
+        # the host loop's step: one replay on the batch it is given
+        self.train_step = self.multi_step.step
         self.train_step_gs = make_train_step(self.train_config,
                                              with_grad_stats=True, **bg_kw)
 
@@ -550,32 +564,28 @@ class Trainer:
             return (min(((step // c) + 1) * c for c in cadences)
                     if cadences else step + K)
 
-        def log_steps(end_step, chunk):
+        def log_steps(end_step, span, chunk):
             """Reference-parity stdout (training.py:226): one line per log
-            boundary crossed by the last chunk, and one JSONL record of
-            that step's metrics; the chunk's values come over in one
-            copy."""
+            boundary crossed by the last chunk of ``span`` steps, and one
+            JSONL record of that step's metrics; the chunk's [span] metrics
+            come over in one copy."""
             L = tcfg.log_every
             if not L or L <= 0:
                 return
-            span = len(chunk)
             first = ((end_step - span) // L + 1) * L
             if first > end_step:
                 return
-            logged = range(first, end_step + 1, L)
-            host = to_host({(s, name): v
-                            for s in logged
-                            for name, v in chunk[s - (end_step - span) - 1]
-                            .items()})
-            for s in logged:
-                values = {name: v for (t, name), v in host.items() if t == s}
+            host = to_host(chunk)
+            for s in range(first, end_step + 1, L):
+                i = s - (end_step - span) - 1
+                values = {name: v[i] for name, v in host.items()}
                 print(f"iteration {s}\tloss {float(values['loss']):.3f}\t"
                       f"accuracy {float(values['accuracy']):.2f}")
                 self.metrics.write(s, values, prefix="train/")
 
         t_start = time.time()
         images_seen = 0
-        self.step_seconds = 0.0
+        self.timer = StepTimer(warmup=1)
         last_eval = (None, None)             # (step, acc) of the last eval
         step = self.state.step
         total_epochs = tcfg.epochs if tcfg.epochs is not None else 10 ** 9
@@ -622,18 +632,15 @@ class Trainer:
             k = min(k, max(next_event(step) - step, 1))
             if max_iters is not None:
                 k = min(k, max_iters - step)
-            t_chunk = time.perf_counter()
-            chunk = []
-            for i in range(k):
-                self.state, m = self.train_step(
-                    self.state, *self.loader.gather_batch(i))
-                chunk.append(m)
-            self.calls["train"] += k
-            self.loader.advance(k)
-            step += k
-            images_seen += k * tcfg.batch_size
-            log_steps(step, chunk)
-            self.step_seconds += time.perf_counter() - t_chunk
+            with self.timer.step(k):
+                self.state, chunk = self.multi_step(
+                    self.state, self.loader.images, self.loader.digits,
+                    self.loader.perm(), self.loader.index, num_steps=k)
+                self.calls["train"] += k
+                self.loader.advance(k)
+                step += k
+                images_seen += k * tcfg.batch_size
+                log_steps(step, k, chunk)
 
         final_step = step
         if last_eval[0] == final_step:
@@ -651,16 +658,34 @@ class Trainer:
     def _ended(self, final_step, acc, images_seen, t_start, **extra) -> dict:
         """The closing line and result. ``images_per_sec`` is over the whole
         run, events included (the JAX package's figure); ``ms_per_step``
-        over the host time of the train steps and their logging only."""
+        over the host time of the captured train steps and their logging
+        only (``self.timer``); ``first_call_ms``, the first call, which
+        captures the step; ``steady_ms_per_step``, the calls after it."""
         wall = time.time() - t_start
         ips = images_seen / wall if wall > 0 else 0.0
-        steps = images_seen // self.tcfg.batch_size
-        ms = self.step_seconds / steps * 1e3 if steps else 0.0
+        steps = sum(self.timer.items)
+        ms = sum(self.timer.times) / steps * 1e3 if steps else 0.0
+        summary = self.timer.summary()
+        steady = (1e3 / summary["items_per_sec"]
+                  if summary["items_per_sec"] else 0.0)
         print(f"training has ended: step {final_step}, "
               f"test accuracy {acc:.4f}, {ips:.0f} images/sec, "
-              f"{ms:.3f} ms/step in the train steps")
+              f"{ms:.3f} ms/step in the train steps ({steady:.3f} after the "
+              f"first call, which took {summary['first_step_ms']:.1f} ms)")
         return {"step": final_step, "test_accuracy": acc,
-                "images_per_sec": ips, "ms_per_step": ms, **extra}
+                "images_per_sec": ips, "ms_per_step": ms,
+                "steady_ms_per_step": steady,
+                "first_call_ms": summary["first_step_ms"], **extra}
+
+    def _log_step(self, step: int, metrics: dict) -> None:
+        """The host loop's stdout line and JSONL record of a step, at the
+        log cadence."""
+        if cadence_hit(step, self.tcfg.log_every):
+            values = to_host(metrics)
+            print(f"iteration {step + 1}\tloss "
+                  f"{float(values['loss']):.3f}\taccuracy "
+                  f"{float(values['accuracy']):.2f}")
+            self.metrics.write(step, values, prefix="train/")
 
     # -- main loop -------------------------------------------------------------
     def train(self):
@@ -669,7 +694,7 @@ class Trainer:
         tcfg = self.tcfg
         t_start = time.time()
         images_seen = 0
-        self.step_seconds = 0.0
+        self.timer = StepTimer(warmup=1)
         step = self.state.step
         print(f"training: batch={tcfg.batch_size} epochs={tcfg.epochs} "
               f"start_step={step}")
@@ -698,24 +723,18 @@ class Trainer:
                                 loader_state=loader_state_snapshot,
                                 recovery=self.recovery_meta())
 
-            t_step = time.perf_counter()
             if cadence_hit(step, tcfg.grad_summaries_every):
                 self.state, metrics = self._grad_step(images, targets)
                 self._write_grad_summaries(step, metrics)
+                self._log_step(step, metrics)
             else:
-                self.calls["train"] += 1
-                self.state, metrics = self.train_step(self.state, images,
-                                                      targets)
+                with self.timer.step(1):
+                    self.calls["train"] += 1
+                    self.state, metrics = self.train_step(
+                        self.state, images, targets)
+                    self._log_step(step, metrics)
             loader_state_snapshot = self.loader.state()
-
             images_seen += tcfg.batch_size
-            if cadence_hit(step, tcfg.log_every):
-                values = to_host(metrics)
-                print(f"iteration {step + 1}\tloss "
-                      f"{float(values['loss']):.3f}\taccuracy "
-                      f"{float(values['accuracy']):.2f}")
-                self.metrics.write(step, values, prefix="train/")
-            self.step_seconds += time.perf_counter() - t_step
 
         # final eval + checkpoint. NOTE: loader_state_snapshot, NOT
         # self.loader.state() — a break can fire after the loop pulled an

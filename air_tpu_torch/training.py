@@ -27,7 +27,8 @@ import sys
 # flags whose path the port lacks, and the ROADMAP item that brings it
 UNPORTED = {
     "--data-parallel": "Queue 1, multi-GPU",
-    "--pipeline-unroll > 1": "Queue 1, captured train step",
+    "--pipeline-unroll > 1": "Queue 1: a replayed CUDA graph has no "
+                             "cross-step fusion knob",
 }
 
 
@@ -93,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "shipped config default")
     parser.add_argument("--unroll", type=int, default=None,
                         help="AIRConfig.scan_unroll (kept for parity; the "
-                             "port's attention loop is eager)")
+                             "port's attention loop is a Python loop)")
     parser.add_argument("--compute-dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="AIRConfig.compute_dtype: bfloat16 runs the "

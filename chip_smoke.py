@@ -56,7 +56,8 @@ line with the card's name and power limit as nvidia-smi reports them:
               ending in a synchronize) through each path's kernels and
               through the plain path.
   7. trainer  the port's trainer, as ``python -m air_tpu_torch.training``
-              configures it (the robust default, st_impl="inline"), on a
+              configures it (the robust default, st_impl="inline"; both
+              loops replay one captured train step), on a
               multi-MNIST set generated here from the committed digit pool
               (TRAINER_PER_STRATUM canvases per digit count, TRAINER_TEST of
               them held out) in a temporary directory. The device-data loop
@@ -71,7 +72,8 @@ line with the card's name and power limit as nvidia-smi reports them:
               the step-200 checkpoint gives the uninterrupted run's losses
               from step 201 on and its final params bit for bit. The host
               loop runs TRAINER_HOST_STEPS steps under the same checks.
-              Prints ms/step and images/s of both loops.
+              Prints ms/step and images/s of both loops, and the first
+              call (the capture) apart.
 
   8. layouts  the paths of the JAX package's entry points, which take the
               ST read and write through plain products (no ST kernel may
@@ -102,7 +104,8 @@ line with the card's name and power limit as nvidia-smi reports them:
               on phase 5's batch, each replica in the order of its own
               epoch permutation. Step 0's gradients through the kernels
               against the plain path (GRAD_TOL, every replica's leaf);
-              SEEDS_STEPS steps (the phase's main run): each step launches
+              SEEDS_STEPS steps (the phase's main run, one captured step
+              replayed, SEEDS_K per call): each step launches
               kernels 1-4 max_steps times each and no other kernel, and
               every replica passes phase 5's progress rule; each replica
               against DETERMINISM_STEPS steps of the single-seed step of
@@ -116,11 +119,25 @@ line with the card's name and power limit as nvidia-smi reports them:
               ``python -m air_tpu_torch.seed_sweep`` on a set generated
               from the committed digit pool (SEEDS_PER_STRATUM canvases
               per digit count, SEEDS_TEST held out), SWEEP_ITERS steps
-              with evals every SWEEP_EVERY, and
-              ms/step (CUDA events), images/s and kernels plus copies per
-              step (torch.profiler) at S = 1, 4, 10 and 16 beside the
-              single-seed step's. Every vmap runs with the per-replica
-              fallback loop turned into an error.
+              with evals every SWEEP_EVERY. Every vmap runs with the
+              per-replica fallback loop turned into an error.
+ 10. captured the train step captured as a CUDA graph and replayed
+              (air_tpu_torch.train.fast_pipeline) against the eager step,
+              on phase 5's batch: TRAIN_STEPS captured steps from
+              create_train_state (seed 0) through st_impl "inline",
+              "pallas" and "xla" give phase 5's losses and params digest
+              bit for bit (xla's eager run is made here), each path's
+              kernels launching max_steps times a replayed step;
+              HOLD_STEPS steps under the training CLI's schedules across
+              the end of its z_pres prior hold bit-equal to the eager steps,
+              the prior still up to the hold's last step and moving after;
+              torch.profiler names kernels 1-4 max_steps times per
+              replayed step; SEEDS_STEPS eager seed-parallel steps
+              bit-equal to phase 9's captured run. Then ms/step (CUDA
+              events), images/s, kernels and copies and device busy share
+              per step (torch.profiler) and the first call (with the
+              capture), captured and eager, for the single-seed step and
+              the seed-parallel step at S = 1, 4, 10 and 16.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -158,17 +175,20 @@ from air_tpu_torch.train.checkpoint import (checkpoint_arch,
                                             latest_checkpoint,
                                             load_checkpoint, load_params,
                                             save_checkpoint)
+from air_tpu_torch.train.fast_pipeline import make_multi_step
 from air_tpu_torch.train.metrics import summarize_outputs
 from air_tpu_torch.train.state import create_train_state
 from air_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        step_generator)
 from air_tpu_torch.train.multi_seed import (create_multi_seed_state,
                                             make_multi_seed_step,
+                                            make_replica_step,
                                             multi_seed_perms, reinit_replica,
                                             replica_batch, replica_gradients,
                                             replica_noise)
 from air_tpu_torch.train.trainer import Trainer
 from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
+from air_tpu_torch.utils.profiling import StepTimer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
@@ -227,6 +247,8 @@ SWEEP_ITERS = 200
 SWEEP_EVERY = 100
 SWEEP_K = 50
 SEED_TIMED = (1, 4, 10, 16)  # S of the timings
+# phase 10: steps across the end of the training CLI's z_pres prior hold
+HOLD_STEPS = 10
 # the kernels each path launches: (forward, backward)
 PATHS = {
     "inline": (("inline_attention_read", "inline_write_accumulate"),
@@ -234,6 +256,11 @@ PATHS = {
     "pallas": (("pallas_attention_read", "fused_write_accumulate"),
                ("fused_write_accumulate_bwd",)),
 }
+# kernels 1-4 by the names the card's profiler gives them
+INLINE_SYMBOLS = {"inline_attention_read": "st_read_kernel",
+                  "inline_write_accumulate": "st_write_kernel",
+                  "inline_attention_read_bwd": "st_read_bwd_kernel",
+                  "inline_write_accumulate_bwd": "st_write_bwd_kernel"}
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -564,9 +591,10 @@ def check_serve(impl: str, params, canvases, truth, card_line: str):
     return wrapper
 
 
-def check_train(config, state0, images, digits, card_line: str) -> dict:
+def check_train(config, state0, images, digits, card_line: str) -> tuple:
     """Phase 5 for the path of ``config.st_impl``. Returns the launches of
-    each of the path's kernels over its TRAIN_STEPS steps."""
+    each of the path's kernels over its TRAIN_STEPS steps, and the run's
+    losses and params digest."""
     impl, steps = config.st_impl, config.max_steps
     per_step = {k: steps for k in PATHS[impl][0] + PATHS[impl][1]}
     noise = draw_noise(config, BATCH, step_generator(0, 0, DEVICE), DEVICE)
@@ -654,6 +682,7 @@ def check_train(config, state0, images, digits, card_line: str) -> dict:
         f"{float(summary['accuracy']):.4f}, loss "
         f"{float(summary['loss']):.3f}")
 
+    trained = state
     with tempfile.TemporaryDirectory() as tmp:
         path = save_checkpoint(tmp, state)
         loaded = load_checkpoint(path, config, device=DEVICE)
@@ -684,7 +713,7 @@ def check_train(config, state0, images, digits, card_line: str) -> dict:
              f"state part at step {first}")
     say("train", card_line, f"st_impl={impl} two runs of "
         f"{DETERMINISM_STEPS} steps from the same state: losses bit-equal")
-    return main_launches
+    return main_launches, (losses, digest(tree_leaves(trained.params)))
 
 
 def train_step_ms(train_step, state, images, digits, runs: int = 10):
@@ -804,9 +833,12 @@ def check_trainer(card_line: str) -> dict:
                 + " ".join(f"@{s}={a:.4f}" for s, a in evals.items())
                 + f"; checkpoints {saved}, metrics.jsonl and a PNG written; "
                 f"params_sha256={params_a}")
-            say("trainer", card_line, f"device-data loop: "
+            say("trainer", card_line, f"device-data loop (captured step): "
                 f"{result['ms_per_step']:.3f} ms/step in the train steps, "
                 f"{BATCH / result['ms_per_step'] * 1e3:.1f} images/s; "
+                f"{result['steady_ms_per_step']:.3f} ms/step after the "
+                f"first chunk, which took {result['first_call_ms']:.1f} ms "
+                f"with the capture (StepTimer); "
                 f"{result['images_per_sec']:.1f} images/s over the whole "
                 f"run, events included")
 
@@ -856,8 +888,11 @@ def check_trainer(card_line: str) -> dict:
             say("trainer", card_line, f"host loop {TRAINER_HOST_STEPS} "
                 f"steps: launches={host_launches} for {dict(host.calls)} "
                 f"forward passes; loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
-                f"{result['ms_per_step']:.3f} ms/step in the train steps, "
-                f"{BATCH / result['ms_per_step'] * 1e3:.1f} images/s")
+                f"{result['ms_per_step']:.3f} ms/step in the captured train "
+                f"steps, {BATCH / result['ms_per_step'] * 1e3:.1f} images/s; "
+                f"{result['steady_ms_per_step']:.3f} ms/step after the "
+                f"first, which took {result['first_call_ms']:.1f} ms with "
+                f"the capture")
         except BaseException:
             with open(log) as f:
                 sys.stderr.write(f.read()[-6000:])
@@ -1177,27 +1212,42 @@ def params_apart(a_tree, b_tree, lr: float, steps: int) -> tuple:
     return worst, mean
 
 
-def seed_step_ms(config, n_rep: int, images, digits, runs: int = 10):
-    """(ms per step from CUDA events over ``runs`` steps, (kernels and
-    copies, their device ms) per step) of the seed-parallel step at S =
-    n_rep, and of the single-seed step at n_rep = 0."""
+def step_times(config, n_rep: int, images, digits, captured: bool,
+               runs: int = 10) -> dict:
+    """Times of one train step on phase 5's batch: the seed-parallel step
+    at S = n_rep, the single-seed step at n_rep = 0; captured (one CUDA
+    graph replayed per step) or eager. ``ms``: per step from CUDA events
+    over ``runs`` steps; ``first_ms``: the first call (host clock, ending
+    in a synchronize: with the capture when captured); ``kernels`` and
+    ``busy_ms``: kernels and copies and their device ms per step
+    (torch.profiler)."""
     if n_rep:
         states = [create_multi_seed_state(config, range(n_rep),
                                           device=DEVICE)]
         perms = multi_seed_perms(images.shape[0], range(n_rep), 0,
                                  device=DEVICE)
-        multi = make_multi_seed_step(config, 1, BATCH)
+        if captured:
+            multi = make_multi_seed_step(config, 1, BATCH)
 
-        def step():
-            states[0] = multi(states[0], images, digits, perms, 0)[0]
+            def step():
+                states[0] = multi(states[0], images, digits, perms, 0)[0]
+        else:
+            eager = make_replica_step(config)
+            batch = replica_batch(images, digits, perms, 0, BATCH)
+
+            def step():
+                states[0] = eager(states[0], *batch)[0]
     else:
         states = [create_train_state(config, seed=0, device=DEVICE)]
-        single = make_train_step(config)
+        single = (make_multi_step(config, 1, BATCH).step if captured
+                  else make_train_step(config))
 
         def step():
             states[0] = single(states[0], images[:BATCH], digits[:BATCH])[0]
-    step()
-    torch.cuda.synchronize()
+    timer = StepTimer(warmup=1)
+    with timer.step():
+        step()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1205,14 +1255,181 @@ def seed_step_ms(config, n_rep: int, images, digits, runs: int = 10):
         step()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / runs, kernels_per_call(step)
+    kernels, busy = kernels_per_call(step)
+    return {"ms": start.elapsed_time(end) / runs,
+            "first_ms": timer.summary()["first_step_ms"],
+            "kernels": kernels, "busy_ms": busy}
 
 
-def check_seeds(train_cfg, images, digits, card_line: str) -> dict:
+def st_kernels_per_step(fn, calls: int = 3) -> dict:
+    """How many times each of kernels 1-4 ran per call of ``fn``, by the
+    names torch.profiler gives the card's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name in INLINE_SYMBOLS}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name, symbol in INLINE_SYMBOLS.items():
+                if symbol + "<" in e.key:
+                    counts[name] += e.count
+    return {k: v / calls for k, v in counts.items()}
+
+
+def captured_run(config, state0, images, digits, steps: int) -> tuple:
+    """``steps`` captured steps on phase 5's batch (perm 0..63, every step
+    clamped to the one batch): a first call of one step (the capture) and
+    one of the rest. Returns (state, losses, z_pres prior log-odds, first
+    call ms)."""
+    multi = make_multi_step(config, steps, BATCH)
+    perm = torch.arange(BATCH, device=DEVICE)
+    timer = StepTimer(warmup=1)
+    with timer.step():
+        state, m1 = multi(state0, images, digits, perm, 0, num_steps=1)
+        torch.cuda.synchronize()
+    state, m2 = multi(state, images, digits, perm, 1,
+                      num_steps=steps - 1)
+    return (state, torch.cat([m1["loss"], m2["loss"]]).tolist(),
+            torch.cat([m1["z_pres_prior_log_odds"],
+                       m2["z_pres_prior_log_odds"]]).tolist(),
+            timer.summary()["first_step_ms"])
+
+
+def check_captured(train_cfg, state0, images, digits, eager_runs: dict,
+                   seeds_run: tuple, card_line: str) -> dict:
+    """Phase 10. Returns the launches of each path's kernels over its
+    TRAIN_STEPS captured steps."""
+    captured_launches = {}
+    for impl in (*PATHS, "xla"):
+        config = train_cfg.replace(st_impl=impl)
+        if impl not in eager_runs:       # phase 5 trains only the paths
+            state, losses = state0, []
+            step = make_train_step(config)
+            for _ in range(TRAIN_STEPS):
+                state, m = step(state, images, digits)
+                losses.append(float(m["loss"]))
+            eager_runs[impl] = (losses, digest(tree_leaves(state.params)))
+        want = {k: TRAIN_STEPS * v for k, v in
+                want_kernels(impl, config.max_steps).items()} \
+            if impl in PATHS else {}
+        reset_launches()
+        state, losses, _, first_ms = captured_run(config, state0, images,
+                                                  digits, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        expect_launches({k: 0 for k in launches()}, want,
+                        f"{TRAIN_STEPS} captured {impl} steps")
+        captured_launches.update(want)
+        got = (losses, digest(tree_leaves(state.params)))
+        if got != eager_runs[impl]:
+            fail(f"{impl}: {TRAIN_STEPS} captured steps part from the eager "
+                 f"ones: losses {losses} vs {eager_runs[impl][0]}, params "
+                 f"{got[1]} vs {eager_runs[impl][1]}")
+        say("captured", card_line, f"st_impl={impl} {TRAIN_STEPS} captured "
+            f"steps from create_train_state(seed 0): losses and "
+            f"params_sha256={got[1]} bit-equal to the eager run; launches "
+            f"{want}; first call (two warm-up steps, the capture, one "
+            f"replay) {first_ms:.1f} ms")
+
+    # the training CLI's schedules across the end of the z_pres prior's hold
+    args = training.build_parser().parse_args(["--device", DEVICE])
+    config, _ = training.configs(args)
+    hold = config.schedules["z_pres_prior_log_odds"]["hold"]
+    start = hold - HOLD_STEPS // 2
+    state = create_train_state(config, seed=0, device=DEVICE)
+    state = state.replace(step=start, opt_state=state.opt_state._replace(
+        count=start))
+    eager, losses, odds_e = make_train_step(config), [], []
+    st = state
+    for _ in range(HOLD_STEPS):
+        st, m = eager(st, images, digits)
+        losses.append(float(m["loss"]))
+        odds_e.append(float(m["z_pres_prior_log_odds"]))
+    reset_launches()
+    cap, cap_losses, odds, _ = captured_run(config, state, images, digits,
+                                            HOLD_STEPS)
+    torch.cuda.synchronize()
+    expect_launches({k: 0 for k in launches()},
+                    {k: HOLD_STEPS * v for k, v in
+                     want_kernels(config.st_impl, config.max_steps).items()},
+                    f"{HOLD_STEPS} captured steps across the hold")
+    still = HOLD_STEPS // 2 + 1          # steps start .. hold
+    moved = all(a != b for a, b in zip(odds[still - 1:], odds[still:]))
+    if ((cap_losses, odds, digest(tree_leaves(cap.params)))
+            != (losses, odds_e, digest(tree_leaves(st.params)))
+            or len(set(odds[:still])) != 1 or not moved):
+        fail(f"steps {start}-{start + HOLD_STEPS - 1} across the hold of "
+             f"{hold}: captured losses {cap_losses} vs eager {losses}, "
+             f"prior log-odds {odds} vs {odds_e}")
+    say("captured", card_line, f"--anneal-hold {hold} (the schedules of "
+        f"python -m air_tpu_torch.training): {HOLD_STEPS} captured steps "
+        f"from step {start} bit-equal to the eager ones (losses, "
+        f"params_sha256="
+        f"{digest(tree_leaves(cap.params))}); z_pres prior log-odds "
+        f"{odds[0]!r} through step {hold}, then "
+        + ", ".join(repr(v) for v in odds[still:]))
+
+    # the profiler's names for the kernels of a replayed step
+    config = train_cfg.replace(st_impl="inline")
+    one = make_multi_step(config, 1, BATCH)
+    holder = [state0]
+
+    def replay():
+        holder[0] = one.step(holder[0], images, digits)[0]
+
+    per_step = st_kernels_per_step(replay)
+    if set(per_step.values()) != {config.max_steps}:
+        fail(f"kernels 1-4 per replayed step by the profiler's names: "
+             f"{per_step}")
+    say("captured", card_line, "torch.profiler over 3 replayed steps: "
+        + ", ".join(f"{INLINE_SYMBOLS[k]} {v:.0f}"
+                    for k, v in per_step.items()) + " per step")
+
+    # the seed-parallel step: eager against phase 9's captured main run
+    perms = multi_seed_perms(BATCH, SEEDS, 0, device=DEVICE)
+    st = create_multi_seed_state(config, SEEDS, device=DEVICE)
+    eager, losses = make_replica_step(config), []
+    for i in range(SEEDS_STEPS):
+        st, m = eager(st, *replica_batch(images, digits, perms, i, BATCH))
+        losses.append(m["loss"].cpu())
+    losses = torch.stack(losses).numpy()
+    if not (np.array_equal(losses.view(np.int32),
+                           seeds_run[0].view(np.int32))
+            and digest(tree_leaves(st.params)) == seeds_run[1]):
+        fail(f"seed-parallel: {SEEDS_STEPS} eager steps part from phase 9's "
+             f"captured run (params {digest(tree_leaves(st.params))} vs "
+             f"{seeds_run[1]})")
+    say("captured", card_line, f"S={len(SEEDS)} {SEEDS_STEPS} eager "
+        f"seed-parallel steps bit-equal to phase 9's captured run (losses, "
+        f"params_sha256={seeds_run[1]})")
+
+    # times on phase 5's batch, captured and eager
+    for n_s in (0, *SEED_TIMED):
+        s_eff = max(n_s, 1)
+        for captured in (True, False):
+            t = step_times(config, n_s, images, digits, captured)
+            say("captured", card_line, (f"seed-parallel step S={n_s}"
+                                        if n_s else "single-seed step")
+                + f" ({'captured' if captured else 'eager'}, inline, batch "
+                f"{BATCH} per replica): {t['ms']:.3f} ms/step (CUDA events, "
+                f"10 steps), {s_eff * BATCH / t['ms'] * 1e3:.1f} images/s; "
+                f"{t['kernels']:.0f} kernels and copies per step, "
+                f"{t['busy_ms']:.3f} ms of device time (torch.profiler, 3 "
+                f"steps; {t['busy_ms'] / t['ms']:.1%} of the step); first "
+                f"call {t['first_ms']:.1f} ms")
+    return captured_launches
+
+
+def check_seeds(train_cfg, images, digits, card_line: str) -> tuple:
     """Phase 9 on phase 5's batch (``images``, ``digits``: 64 canvases,
     each replica in its own order). Returns the kernels' launches in its
     main run (kernels 1-4: the SEEDS_STEPS seed-parallel steps) and in the
-    seed-parallel pallas steps (kernels 5-7)."""
+    seed-parallel pallas steps (kernels 5-7), and the main run's [steps, S]
+    losses and params digest."""
     config = train_cfg.replace(st_impl="inline")
     lr, n_rep, n = config.learning_rate, len(SEEDS), images.shape[0]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1237,16 +1454,19 @@ def check_seeds(train_cfg, images, digits, card_line: str) -> dict:
                                              config.max_steps).items()}
         state, losses, recons, first_k = state0, [], [], None
         reset_launches()
+        timer = StepTimer(warmup=1)
         t = time.perf_counter()
         for i in range(0, SEEDS_STEPS, SEEDS_K):
             before = launches()
-            state, m = multi(state, images, digits, perms, i)
+            with timer.step(SEEDS_K):
+                state, m = multi(state, images, digits, perms, i)
+                torch.cuda.synchronize()
             expect_launches(before, per_call, f"seed-parallel steps "
                             f"{i}-{i + SEEDS_K - 1}")
             losses.append(m["loss"].cpu())
             recons.append(m["reconstruction_loss"].cpu())
             if first_k is None:
-                first_k = (state, m["loss"].cpu())
+                first_k = m["loss"].cpu()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         main_launches = {k: launches()[k] for k in per_call}
@@ -1263,18 +1483,21 @@ def check_seeds(train_cfg, images, digits, card_line: str) -> dict:
                 fail(f"seed-parallel replica {r}: leaves that did not move "
                      f"{still}, or reconstruction loss of the last 5 steps "
                      f"{last5} not below the first 5 {first5}")
+        main_digest = digest(tree_leaves(state.params))
         say("seeds", card_line, f"S={n_rep} {SEEDS_STEPS} seed-parallel "
-            f"steps ({SEEDS_K} per call) in {seconds:.2f} s, launches="
+            f"steps ({SEEDS_K} per call, one captured step replayed) in "
+            f"{seconds:.2f} s (the first call, with the capture, "
+            f"{timer.summary()['first_step_ms']:.1f} ms), launches="
             f"{main_launches}; per replica loss "
             + ", ".join(f"{losses[0, r]:.3f} -> {losses[-1, r]:.3f}"
                         for r in range(n_rep))
             + "; reconstruction loss of the last 5 steps below the first 5 "
             f"for every replica; every leaf of every replica moved; "
-            f"params_sha256={digest(tree_leaves(state.params))}")
+            f"params_sha256={main_digest}")
 
         # each replica against the single-seed run of its seed: the
         # losses over SEEDS_K steps, the params after one
-        losses_k = first_k[1]
+        losses_k = first_k
         single = make_train_step(config)
         state_1, _ = make_multi_seed_step(config, 1, BATCH)(
             state0, images, digits, perms, 0)
@@ -1361,20 +1584,9 @@ def check_seeds(train_cfg, images, digits, card_line: str) -> dict:
             f"against the plain path max rel {rel:.3g} (tol {SEED_LOSS_TOL})")
 
         check_sweep(data, tmp, card_line)
-
-    # timings on phase 5's batch
-    for n_s in (0, *SEED_TIMED):
-        ms, (kern, busy) = seed_step_ms(config, n_s, images, digits)
-        s_eff = max(n_s, 1)
-        say("seeds", card_line, (f"seed-parallel step S={n_s}"
-                                 if n_s else "single-seed step")
-            + f" (inline, batch {BATCH} per replica): {ms:.3f} ms/step "
-            f"(CUDA events, 10 steps), {s_eff * BATCH / ms * 1e3:.1f} "
-            f"images/s; {kern:.0f} kernels and copies per step, "
-            f"{busy:.3f} ms of device time (torch.profiler, 3 steps; "
-            f"{busy / ms:.1%} of the step)")
-    return {**main_launches, **{k: v for k, v in pallas_launches.items()
-                                if k not in main_launches}}
+    return ({**main_launches, **{k: v for k, v in pallas_launches.items()
+                                 if k not in main_launches}},
+            (losses, main_digest))
 
 
 def check_sweep(data: str, tmp: str, card_line: str) -> None:
@@ -1474,10 +1686,12 @@ def main() -> None:
         DEVICE)
     digits = torch.from_numpy(np.concatenate([truth, truth[:4]])).to(DEVICE)
     state0 = create_train_state(train_cfg, seed=0, device=DEVICE)
-    train_launches = {}
+    train_launches, eager_runs = {}, {}
     for impl in PATHS:
-        train_launches.update(check_train(train_cfg.replace(st_impl=impl),
-                                          state0, images, digits, card_line))
+        got, eager_runs[impl] = check_train(train_cfg.replace(st_impl=impl),
+                                            state0, images, digits,
+                                            card_line)
+        train_launches.update(got)
 
     # 6. times at B = 64
     d = kernel_inputs(BATCH, seed=1234)
@@ -1576,9 +1790,16 @@ def main() -> None:
             f"{kern[1]:.0f} (1 canvas), {kern[64]:.0f} (64)")
 
     # 9. seed-parallel training
-    seed_launches = check_seeds(train_cfg, images, digits, card_line)
+    seed_launches, seeds_run = check_seeds(train_cfg, images, digits,
+                                           card_line)
     for row in rows:
         row["seeds_launches"] = seed_launches.get(row["name"], 0)
+
+    # 10. the captured train step against the eager one
+    captured_launches = check_captured(train_cfg, state0, images, digits,
+                                       eager_runs, seeds_run, card_line)
+    for row in rows:
+        row["captured_launches"] = captured_launches.get(row["name"], 0)
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

@@ -319,6 +319,45 @@ def test_replica_matches_single_seed_with_knobs_and_lr_schedule():
     _replicas_vs_single(cfg, (0, 1, 2), knobs=knobs, steps=3)
 
 
+@pytest.mark.parametrize("knobbed", [False, True])
+def test_captured_form_is_the_eager_form(knobbed):
+    """make_multi_seed_step's slot-based body (the form it captures on the
+    card), in two calls of 2 and 1 steps from batch 1, against 3 calls of
+    its eager form (make_replica_step on the same batches): bit-equal at
+    S = 2, with replica clocks apart and, knobbed, each replica on its own
+    rotation variant; the state it was given is left unchanged."""
+    cfg = AIRConfig(**{**SMALL, **MAIN_OPT, "annealing_schedules": {
+        "z_pres_prior_log_odds": {"init": 1e4, "min": 1e-9, "factor": 0.1,
+                                  "iters": 2, "log": True}}})
+    images, digits = _data(6, N, cfg.canvas_size)
+    state = create_multi_seed_state(cfg, SEEDS, device="cpu")
+    state = state.replace(step=torch.tensor([0, 3]))
+    kept = tree_map(torch.clone, (state.params, state.opt_state.mu))
+    perms = multi_seed_perms(N, SEEDS, 0, device="cpu")
+    knobs = (stack_knobs(KNOBS),) if knobbed else ()
+    multi = make_multi_seed_step(cfg, 2, B, knob_schedules=knobbed)
+    s1, m1 = multi(state, images, digits, perms, 1, *knobs)
+    s2, m2 = multi(s1, images, digits, perms, 3, *knobs, num_steps=1)
+    eager = multi_seed.make_replica_step(cfg, knob_schedules=knobbed)
+    want, losses = state, []
+    for i in range(3):
+        want, m = eager(want, *multi_seed.replica_batch(
+            images, digits, perms, 1 + i, B), *knobs)
+        losses.append(m["loss"])
+    assert torch.equal(torch.cat([m1["loss"], m2["loss"]]),
+                       torch.stack(losses))
+    assert s2.step.tolist() == want.step.tolist() == [3, 6]
+    assert s2.opt_state.count.tolist() == want.opt_state.count.tolist()
+    for a, b in zip(tree_leaves((s2.params, s2.opt_state.mu,
+                                 s2.opt_state.nu)),
+                    tree_leaves((want.params, want.opt_state.mu,
+                                 want.opt_state.nu))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(tree_leaves((state.params, state.opt_state.mu)),
+                    tree_leaves(kept)):
+        assert torch.equal(a, b)
+
+
 def test_optimizer_update_replicas_matches_update():
     """Stacked Adam from identical per-replica gradients and clocks equals
     the single-seed update bit for bit where no reduction is involved

@@ -33,6 +33,7 @@ PORT_MODULES = (
     "air_tpu_torch.train.state", "air_tpu_torch.train.steps",
     "air_tpu_torch.train.evaluate", "air_tpu_torch.train.trainer",
     "air_tpu_torch.train.visualize", "air_tpu_torch.train.multi_seed",
+    "air_tpu_torch.train.fast_pipeline", "air_tpu_torch.utils.profiling",
     "air_tpu_torch.seed_sweep", "air_tpu_torch.demo",
     "air_tpu_torch.embeddings", "air_tpu_torch.tools.demo_tk",
     "air_tpu_torch.tools.embeddings", "air_tpu_torch.tools.headless_demo")
@@ -50,7 +51,8 @@ missing = set(PORT_MODULES) - walked
 assert not missing, missing
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 for script in ("profile_torch_serve.py", "profile_torch_train.py",
-               "determinism_torch_train.py", "sweep_st_geometry.py"):
+               "determinism_torch_train.py", "sweep_st_geometry.py",
+               "capture_check_torch.py"):
     runpy.run_path("scripts/" + script, run_name="profile")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "air_tpu")
           and sys.modules[m] is not None]
