@@ -223,13 +223,15 @@ def to_device(device):
 
 
 def gather_batch(images, digits, perm, index: int, batch_size: int,
-                 out=None):
+                 out=None, offset: int = 0, rows: int | None = None):
     """Batch ``index`` of the permutation ``perm`` of the device-resident
     ``images`` and ``digits``; into the (images, digits) tensors ``out``
     when given. Past the last full batch the slice is clamped to it, as
-    ``jax.lax.dynamic_slice`` clamps in the JAX package."""
-    lo = min(index * batch_size, len(images) - batch_size)
-    idx = perm[lo:lo + batch_size]
+    ``jax.lax.dynamic_slice`` clamps in the JAX package. ``offset`` and
+    ``rows`` take rows ``[offset, offset + rows)`` of the batch (a data
+    rank's part of it)."""
+    lo = min(index * batch_size, len(images) - batch_size) + offset
+    idx = perm[lo:lo + (batch_size if rows is None else rows)]
     if out is None:
         return images.index_select(0, idx), digits.index_select(0, idx)
     return (torch.index_select(images, 0, idx, out=out[0]),

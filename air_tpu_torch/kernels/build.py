@@ -20,11 +20,14 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# the library of each csrc/<name>.cu
+LIBRARIES = ("st_inline", "st_pallas", "st_fused")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # shared memory one block can have on an H100 (dynamic, after opting in)
 MAX_SMEM_BYTES = 232_448
@@ -77,6 +80,14 @@ def load(name: str) -> Library:
         report.write_text(proc.stderr)
         os.replace(tmp, so)
     return Library(ctypes.CDLL(str(so)), so, report.read_text(), seconds)
+
+
+def load_all() -> dict:
+    """Every library of ``LIBRARIES``, one nvcc per source, all started
+    together: {name: Library}. A process that starts ranks calls it first,
+    so that they find the libraries built."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return dict(zip(LIBRARIES, pool.map(load, LIBRARIES)))
 
 
 def check(name: str, t: torch.Tensor, shape: tuple, device) -> None:

@@ -20,7 +20,8 @@ Two decoder layouts (``config.decoder_layout``):
     write-accumulate), hand-written CUDA kernels with the dense weight
     matrices streamed in. Both take their kernels' plain versions on the
     CPU. ``"xla"`` takes the read and the write through the plain products
-    of ``air_tpu_torch.ops.transformer``.
+    of ``air_tpu_torch.ops.transformer``, under either ``st_pad_mode``
+    (the kernels take ``"zeros"`` only; ``check_supported``).
   * ``"stepparallel"``: only the LSTM chain runs step by step (its input is
     the same encoding every step and nothing downstream feeds back into
     it); heads, sampling, both transforms and the VAE run once on ``[T*B]``
@@ -45,6 +46,7 @@ the draws come from ``generator``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -92,9 +94,14 @@ class AIROutputs(NamedTuple):
 
 
 def check_supported(config: AIRConfig) -> None:
-    """Raise for a configuration whose path the port does not have yet."""
-    if config.st_pad_mode != "zeros":
-        raise NotImplementedError("the port implements st_pad_mode='zeros'")
+    """Raise ``ValueError`` for a configuration no path takes: the kernels
+    of ``st_impl="inline"`` and ``"pallas"`` build the zeros-pad hat only,
+    so ``st_pad_mode="clamp_cancel"`` runs on ``st_impl="xla"``, as in the
+    JAX package."""
+    if (config.st_impl in ("inline", "pallas")
+            and config.st_pad_mode != "zeros"):
+        raise ValueError(f"st_impl={config.st_impl!r} only implements "
+                         "st_pad_mode='zeros'")
 
 
 def init_air_params(generator: torch.Generator, config: AIRConfig,
@@ -208,8 +215,9 @@ def _attend(params: dict, config: AIRConfig, hp: dict,
     cdt = getattr(torch, config.compute_dtype)
     f32 = torch.float32
     read = {"inline": inline_attention_read,
-            "pallas": pallas_attention_read}.get(config.st_impl,
-                                                 attention_read)
+            "pallas": pallas_attention_read}.get(
+                config.st_impl, functools.partial(
+                    attention_read, pad_mode=config.st_pad_mode))
 
     def head(name):
         return two_layer_head_apply(_cast(params[name], cdt), outputs).to(f32)
@@ -328,7 +336,8 @@ def _scan(params, config, hp, images_2d, rnn_input, init_recon, train,
                                   alive.to(torch.float32) * a.z_pres, cs)
         else:
             window_recon = attention_write(
-                a.vae_recon.reshape(batch, ws, ws), s, x, y, cs)
+                a.vae_recon.reshape(batch, ws, ws), s, x, y, cs,
+                config.st_pad_mode)
             running_recon = running_recon + torch.where(
                 alive[:, None],
                 a.z_pres[:, None] * window_recon.reshape(batch, cs * cs), 0.0)
@@ -370,7 +379,8 @@ def _stepparallel(params, config, hp, images_2d, rnn_input, init_recon,
                 {k: v.reshape(rows, *v.shape[2:]) for k, v in noise.items()})
     window_recon = attention_write(
         a.vae_recon.reshape(rows, ws, ws), a.scale[:, 0], a.shift[:, 0],
-        a.shift[:, 1], cs).reshape(steps, batch, cs * cs)
+        a.shift[:, 1], cs, config.st_pad_mode).reshape(steps, batch,
+                                                       cs * cs)
     a = _Step(*(f.reshape(steps, batch, *f.shape[1:]) for f in a))
 
     threshold = hp["stopping_threshold"]

@@ -6,8 +6,10 @@ serving facade name the same knobs in both packages. The port keeps its own
 copy so that it imports nothing of the JAX package.
 
 Knobs that select a JAX/TPU execution strategy (``scan_unroll``) are kept
-for surface parity. ``st_pad_mode="clamp_cancel"``, not ported yet, raises
-``NotImplementedError`` in ``air_tpu_torch.models.air``.
+for surface parity. ``st_pad_mode="clamp_cancel"`` runs on
+``st_impl="xla"`` in both decoder layouts; with ``"inline"`` or
+``"pallas"`` it raises ``ValueError`` in ``air_tpu_torch.models.air``, as in
+the JAX package.
 """
 
 from __future__ import annotations

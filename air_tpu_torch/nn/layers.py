@@ -8,6 +8,10 @@ The init functions draw from an explicit ``torch.Generator`` on the device
 the parameters are made on (glorot-uniform weights, zero biases, as the JAX
 package initialises them). The draws differ from ``jax.random``'s; the
 tests compare shapes, dtypes and bounds.
+
+Under a model axis (``air_tpu_torch.parallel``) a kernel may be this
+rank's column slice: ``matmul`` gathers its product. Without one every
+product is the plain ``x @ w``, bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from air_tpu_torch.parallel.collectives import column_parallel
 
 
 def uniform(generator: torch.Generator, shape, limit: float) -> torch.Tensor:
@@ -54,10 +60,23 @@ def two_layer_head_init(generator: torch.Generator, in_dim: int, hidden: int,
     }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor, out_dim: int) -> torch.Tensor:
+    """``x @ w`` for a kernel of ``out_dim`` columns; ``w`` holding fewer is
+    this rank's column slice under the model axis, whose product is
+    gathered (``parallel.collectives.column_parallel``, which raises for a
+    width that is not ``out_dim / model``)."""
+    if w.shape[-1] == out_dim:
+        return x @ w
+    return column_parallel(x, w, out_dim)
+
+
 def dense_apply(params: dict, x: torch.Tensor, activation=None) -> torch.Tensor:
     """``x @ w + b`` at the dtype of ``x`` and of the params (the caller
-    casts the params to the compute dtype)."""
-    y = x @ params["w"] + params["b"]
+    casts the params to the compute dtype). Under the model axis a
+    column-sharded ``w`` (its columns fewer than ``b``'s, which stays
+    whole) gives its slice, gathered before the bias."""
+    b = params["b"]
+    y = matmul(x, params["w"], b.shape[-1]) + b
     if activation is not None:
         y = activation(y)
     return y

@@ -6,14 +6,17 @@ added to the forget gate, tanh cell nonlinearity. ``torch.nn.LSTM`` orders
 its gates and biases differently, so it is not used.
 
 Every step computes at the dtype of its inputs and of the params it is
-given (the caller casts both under ``compute_dtype="bfloat16"``).
+given (the caller casts both under ``compute_dtype="bfloat16"``). Under a
+model axis the gate kernel may be this rank's column slice: all four gates
+are gathered (``nn.layers.matmul``) before they are split, and the hoisted
+input projection row-slices the column slice.
 """
 
 from __future__ import annotations
 
 import torch
 
-from air_tpu_torch.nn.layers import glorot_uniform
+from air_tpu_torch.nn.layers import glorot_uniform, matmul
 
 
 def lstm_init(generator: torch.Generator, input_dim: int, units: int) -> dict:
@@ -34,7 +37,9 @@ def lstm_apply(params: dict, state, x: torch.Tensor,
                forget_bias: float = 1.0):
     """One LSTM step. state = (c, h); returns (output h', new_state)."""
     c, h = state
-    gates = torch.cat([x, h], dim=-1) @ params["kernel"] + params["bias"]
+    bias = params["bias"]
+    gates = matmul(torch.cat([x, h], dim=-1), params["kernel"],
+                   bias.shape[-1]) + bias
     return _gates_to_state(gates, c, forget_bias)
 
 
@@ -52,8 +57,8 @@ def lstm_input_proj(params: dict, x: torch.Tensor) -> torch.Tensor:
     sees the same image encoding at each attention step). Same algebra as
     :func:`lstm_apply` up to float reassociation. ``W[:in_dim]`` is a slice
     of the one kernel, so autograd's gradient reaches that leaf."""
-    in_dim = x.shape[-1]
-    return x @ params["kernel"][:in_dim] + params["bias"]
+    in_dim, bias = x.shape[-1], params["bias"]
+    return matmul(x, params["kernel"][:in_dim], bias.shape[-1]) + bias
 
 
 def lstm_apply_hoisted(params: dict, state, x_proj: torch.Tensor,
@@ -62,5 +67,5 @@ def lstm_apply_hoisted(params: dict, state, x_proj: torch.Tensor,
     reads only the recurrent ``[units, 4 * units]`` half of the kernel."""
     c, h = state
     units = h.shape[-1]
-    gates = x_proj + h @ params["kernel"][-units:]
+    gates = x_proj + matmul(h, params["kernel"][-units:], 4 * units)
     return _gates_to_state(gates, c, forget_bias)

@@ -35,6 +35,7 @@ from air_tpu_torch.interop import (bf16_from_bits, bf16_to_bits,
                                    opt_state_from_jax, opt_state_to_jax,
                                    params_from_jax, params_to_jax)
 from air_tpu_torch.models.config import AIRConfig
+from air_tpu_torch.parallel.mesh import gather_state, shard_state
 from air_tpu_torch.train.state import TrainState, create_train_state
 from air_tpu_torch.tree import tree_leaves
 
@@ -129,14 +130,25 @@ def save_checkpoint(directory: str, state: TrainState, step: int | None = None,
                     loader_state: dict | None = None,
                     max_to_keep: int = 10000,
                     prefix: str = "air-model",
-                    recovery: dict | None = None) -> str:
+                    recovery: dict | None = None, mesh=None,
+                    config: AIRConfig | None = None) -> str:
     """Write ``<directory>/<prefix>-<step>.npz`` and its sidecar; keep the
     newest ``max_to_keep``. ``recovery``: the trainer's stall-recovery
     bookkeeping (``Trainer.recovery_meta``), kept in the sidecar when given.
-    Returns the checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+    Returns the checkpoint path.
+
+    With a ``mesh`` (``air_tpu_torch.parallel.mesh.Mesh``) every rank calls
+    it: the model axis's shards are gathered (``gather_state``; ``config``
+    gives the full shapes) and rank 0 writes the single-card checkpoint,
+    which both packages read."""
     if step is None:
         step = int(state.step)
+    path = os.path.join(directory, f"{prefix}-{step}.npz")
+    if mesh is not None:
+        state = gather_state(mesh, state, config)
+        if mesh.rank != 0:
+            return path
+    os.makedirs(directory, exist_ok=True)
     arrays = _flatten(params_to_jax(state.params), "params/")
     opt_leaves = opt_state_to_jax(state.opt_state)
     for i, leaf in enumerate(opt_leaves):
@@ -146,7 +158,6 @@ def save_checkpoint(directory: str, state: TrainState, step: int | None = None,
             arrays[f"opt/{i}"] = leaf.numpy()
     arrays["step"] = np.asarray(int(state.step), np.int32)
 
-    path = os.path.join(directory, f"{prefix}-{step}.npz")
     meta = {"step": step, "loader_state": loader_state,
             "num_opt_leaves": len(opt_leaves), "seed": int(state.seed)}
     if recovery is not None:
@@ -169,13 +180,14 @@ def save_checkpoint(directory: str, state: TrainState, step: int | None = None,
 
 
 def load_checkpoint(path: str, config: AIRConfig, loader=None, meta=None,
-                    device="cuda") -> TrainState:
+                    device="cuda", mesh=None) -> TrainState:
     """A TrainState on ``device`` from a checkpoint of either package.
     ``config`` gives the optimizer's structure: a params-only checkpoint
     gets a fresh optimizer state. The seed comes from the sidecar (0 for a
     checkpoint the JAX package wrote). ``loader`` (optional) is restored in
     place from the sidecar's ``loader_state``; ``meta`` is the sidecar when
-    the caller has read it already (``checkpoint_meta``)."""
+    the caller has read it already (``checkpoint_meta``). With a ``mesh``
+    the state comes back as this rank's part (``shard_state``)."""
     if meta is None:
         meta = checkpoint_meta(path)
     with np.load(path) as z:
@@ -199,4 +211,7 @@ def load_checkpoint(path: str, config: AIRConfig, loader=None, meta=None,
         state = state.replace(opt_state=opt_state)
     if loader is not None and meta.get("loader_state"):
         loader.restore(meta["loader_state"])
-    return state.replace(step=int(arrays["step"]))
+    state = state.replace(step=int(arrays["step"]))
+    if mesh is not None:
+        state = shard_state(mesh, state)
+    return state

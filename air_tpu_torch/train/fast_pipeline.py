@@ -29,6 +29,11 @@ changed. Metrics come back as [K] tensors, copied on the device out of
 each replay. The steps give the eager step's bits: the same body
 (``steps.make_step_body``) on the same values.
 
+The data-parallel step (``make_parallel_multi_step``, one per rank of a
+``parallel.mesh.Mesh``) gathers this rank's rows of each batch and of its
+draws, and replays two graphs around the data axis's all-reduce of the
+gradients, which stays eager (``ParallelMultiStep``).
+
 On the CPU (the tests) the same slots are filled and the body is called
 eagerly; nothing on the card falls back to that path.
 """
@@ -44,14 +49,18 @@ from air_tpu_torch.data.loader import DeviceDataPipeline, gather_batch
 from air_tpu_torch.kernels import st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise, noise_shapes
 from air_tpu_torch.models.config import AIRConfig
+from air_tpu_torch.parallel.collectives import data_sum_
 from air_tpu_torch.train.state import TrainState, make_optimizer
-from air_tpu_torch.train.steps import (TRAIN_METRICS, check_step_options,
+from air_tpu_torch.train.steps import (FORWARD_METRICS, TRAIN_METRICS,
+                                       check_step_options, data_mean,
                                        device_scalars, host_scalars,
-                                       make_step_body, step_generator)
+                                       local_noise, make_grad_body,
+                                       make_step_body, make_update_body,
+                                       pack_grads, step_generator)
 from air_tpu_torch.tree import tree_leaves, tree_unflatten
 
-__all__ = ["CapturedStep", "DeviceDataPipeline", "StepGraph",
-           "make_multi_step", "make_parallel_multi_step"]
+__all__ = ["CapturedStep", "DeviceDataPipeline", "ParallelMultiStep",
+           "StepGraph", "make_multi_step", "make_parallel_multi_step"]
 
 # the kernel modules whose LAUNCHES a replay adds to
 KERNEL_MODULES = (st_inline, st_fused, st_pallas)
@@ -75,10 +84,11 @@ def state_leaves(state: TrainState) -> list:
 
 
 class StepGraph:
-    """A train step over static tensors. ``fn()`` reads the slots and the
-    state ``buffers`` it closes over and returns (the new state's leaves,
-    a metrics tensor); ``run()`` writes the new leaves into ``buffers`` and
-    returns the metrics, valid until the next run.
+    """A train step (or a part of one) over static tensors. ``fn()`` reads
+    the slots and the state ``buffers`` it closes over and returns (the new
+    state's leaves, a metrics tensor or None); ``run()`` writes the new
+    leaves into ``buffers`` and returns the metrics, valid until the next
+    run.
 
     On the card the first ``run`` calls ``fn`` WARMUP times on a side
     stream and drops the results (the kernels' shared-memory attributes,
@@ -128,7 +138,10 @@ class StepGraph:
         was_enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            # CUDA calls of other threads (the host loader's copies, the
+            # process group's watchdog querying its collectives' events)
+            # do not invalidate the capture; this thread's unsafe ones do
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 new, self.metrics = self.fn()
                 torch._foreach_copy_(self.buffers, new)
         finally:
@@ -162,6 +175,13 @@ class CapturedStep:
         params = tree_unflatten(state.params, buffers[:n_p])
         mu = tree_unflatten(state.opt_state.mu, buffers[n_p:n_p + n_m])
         nu = tree_unflatten(state.opt_state.nu, buffers[n_p + n_m:])
+        self.slots, self.names, self.trees = slots, names, (params, mu, nu)
+        self.graph = StepGraph(self._step_fn(params, mu, nu, slots, names),
+                               buffers, slots.images.device)
+
+    def _step_fn(self, params, mu, nu, slots, names):
+        """The function ``StepGraph`` captures: the body on the state
+        buffers' trees and the slots."""
         # fn holds no reference to self: a dropped step, its graph and the
         # graph's memory pool go when the last reference does, not at some
         # later collection of a reference cycle
@@ -175,8 +195,11 @@ class CapturedStep:
                     + tree_leaves(new_nu),
                     torch.stack([metrics[k] for k in metric_names]))
 
-        self.slots, self.names, self.trees = slots, names, (params, mu, nu)
-        self.graph = StepGraph(fn, buffers, slots.images.device)
+        return fn
+
+    def _replay(self) -> torch.Tensor:
+        """One step from the filled slots: its metrics tensor."""
+        return self.graph.run()
 
     def _run(self, state: TrainState, rows: dict, fill, draw, new_slots):
         names = list(rows)
@@ -202,7 +225,7 @@ class CapturedStep:
             fill(i, slots)
             draw(i, slots)
             slots.row.copy_(rows[:, i])
-            out[:, i].copy_(graph.run())
+            out[:, i].copy_(self._replay())
         params, mu, nu = self.trees
         opt = state.opt_state
         new_state = TrainState(
@@ -232,6 +255,8 @@ class MultiStep(CapturedStep):
         check_step_options(bg_image, bg_schedule)
         self.config, self.num_steps = config, num_steps
         self.batch_size = batch_size
+        # the rows of each batch that this step trains on: all of them
+        self.rows, self.offset = batch_size, 0
         self.bg_schedule = bg_schedule if bg_image is not None else None
         self.optimizer = make_optimizer(config)
         self.body = make_step_body(config, bg_image)
@@ -247,13 +272,15 @@ class MultiStep(CapturedStep):
 
         def fill(i, slots):
             gather_batch(images, digits, perm, start + i, self.batch_size,
-                         out=(slots.images, slots.targets))
+                         out=(slots.images, slots.targets),
+                         offset=self.offset, rows=self.rows)
 
         return self._steps(state, k, fill, noise, images, digits)
 
     def step(self, state: TrainState, images, targets, noise=None):
-        """One step on the batch ``images``, ``targets``: (the state after
-        it, {metric: 0-d tensor})."""
+        """One step on the batch ``images``, ``targets`` (this rank's rows
+        of it, for ``ParallelMultiStep``): (the state after it, {metric:
+        0-d tensor})."""
         def fill(i, slots):
             slots.images.copy_(images)
             slots.targets.copy_(targets)
@@ -265,7 +292,7 @@ class MultiStep(CapturedStep):
 
     def _steps(self, state: TrainState, k: int, fill, noise, images,
                targets):
-        config, b = self.config, self.batch_size
+        config = self.config
         device = images.device
         opt = state.opt_state
         rows = [host_scalars(
@@ -276,27 +303,109 @@ class MultiStep(CapturedStep):
             bg_schedule=self.bg_schedule) for i in range(k)]
 
         def draw(i, slots):
-            if noise is not None:
-                copy_noise(slots, noise[i])
-            else:
-                draw_noise(config, b, step_generator(
-                    state.seed, state.step + i, device), device,
-                    out=slots.noise)
+            self._draw(slots, None if noise is None else noise[i],
+                       step_generator(state.seed, state.step + i, device))
 
         def new_slots():
             return SimpleNamespace(
-                images=torch.empty((b, images.shape[-1]),
+                images=torch.empty((self.rows, images.shape[-1]),
                                    dtype=torch.float32, device=device),
-                targets=torch.empty((b,), dtype=targets.dtype,
+                targets=torch.empty((self.rows,), dtype=targets.dtype,
                                     device=device),
                 noise={name: torch.empty(shape, dtype=torch.float32,
                                          device=device)
-                       for name, shape in noise_shapes(config, b).items()})
+                       for name, shape in noise_shapes(config,
+                                                       self.rows).items()})
 
         return self._run(state, {name: torch.tensor([r[name] for r in rows],
                                                     dtype=torch.float32)
                                  for name in rows[0]},
                          fill, draw, new_slots)
+
+    def _draw(self, slots, noise, generator) -> None:
+        """A step's draws into the slots: ``noise`` when given, else from
+        the step's ``generator``."""
+        if noise is not None:
+            copy_noise(slots, noise)
+        else:
+            draw_noise(self.config, self.batch_size, generator,
+                       slots.images.device, out=slots.noise)
+
+
+class ParallelMultiStep(MultiStep):
+    """``make_parallel_multi_step``'s step: ``MultiStep`` on this rank's
+    rows of every global batch, the gradients averaged over the mesh's
+    data axis. A step replays two graphs around an eager all-reduce:
+    ``grad_graph`` (the forward and backward passes into one flat buffer of
+    the gradients and the forward metrics, ``steps.pack_grads``), the
+    all-reduce of that buffer over the data axis (gloo runs it on the host,
+    where no graph can hold it), and ``graph`` (the mean, the optimizer and
+    the state copy). Each graph adds the launches its capture counted.
+
+    The mesh's model axis must be 1, as the JAX package's step replicates
+    its state: a model axis puts collectives inside the forward and the
+    norms, where no graph can hold gloo's (``make_parallel_train_step``
+    runs it, eagerly)."""
+
+    grad_graph = None
+
+    def __init__(self, config: AIRConfig, num_steps: int, batch_size: int,
+                 mesh, bg_image=None, bg_schedule=None):
+        if mesh.model != 1:
+            raise ValueError(
+                f"make_parallel_multi_step is data-parallel only: a mesh of "
+                f"model axis {mesh.model}; train a model axis with "
+                "parallel.train_parallel.make_parallel_train_step")
+        if batch_size % mesh.data != 0:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"data axis size {mesh.data}")
+        super().__init__(config, num_steps, batch_size, bg_image,
+                         bg_schedule)
+        self.mesh = mesh
+        # this rank's rows of each batch
+        self.rows = batch_size // mesh.data
+        self.offset = mesh.data_rank * self.rows
+        self.grad_body = make_grad_body(config, bg_image, mesh)
+        self.update_body = make_update_body(config, mesh=mesh)
+
+    def _step_fn(self, params, mu, nu, slots, names):
+        grad, update = self.grad_body, self.update_body
+        metric_names, mesh = self.metric_names, self.mesh
+        flat = torch.empty(
+            sum(t.numel() for t in tree_leaves(params))
+            + len(FORWARD_METRICS), dtype=torch.float32,
+            device=slots.images.device)
+
+        def grad_fn():
+            grads, forward = grad(params, slots.images, slots.targets,
+                                  slots.noise,
+                                  device_scalars(slots.row, names))
+            return [pack_grads(grads, forward)], None
+
+        def update_fn():
+            grads, forward = data_mean(flat, params, mesh)
+            new_p, new_mu, new_nu, metrics = update(
+                params, mu, nu, grads, forward,
+                device_scalars(slots.row, names))
+            return (tree_leaves(new_p) + tree_leaves(new_mu)
+                    + tree_leaves(new_nu),
+                    torch.stack([metrics[k] for k in metric_names]))
+
+        self.grad_graph = StepGraph(grad_fn, [flat], slots.images.device)
+        return update_fn
+
+    def _replay(self) -> torch.Tensor:
+        self.grad_graph.run()
+        data_sum_(self.grad_graph.buffers[0], self.mesh)
+        return self.graph.run()
+
+    def _draw(self, slots, noise, generator) -> None:
+        """This rank's rows of the global batch's draws (``noise``, or drawn
+        from the step's ``generator``) into the slots."""
+        if noise is None:
+            noise = draw_noise(self.config, self.batch_size, generator,
+                               slots.images.device)
+        copy_noise(slots, local_noise(noise, self.mesh))
 
 
 def make_multi_step(config: AIRConfig, num_steps: int, batch_size: int,
@@ -327,11 +436,24 @@ def make_multi_step(config: AIRConfig, num_steps: int, batch_size: int,
 
 
 def make_parallel_multi_step(config: AIRConfig, num_steps: int,
-                             batch_size: int, mesh=None, donate=True,
-                             bg_image=None, bg_schedule=None,
-                             pipeline_unroll: int = 1):
-    """The data-parallel K-step of the JAX package: comes with the
-    multi-GPU slice of the port."""
-    raise NotImplementedError(
-        "make_parallel_multi_step comes with the multi-GPU slice of the "
-        "port (ROADMAP Queue 1)")
+                             batch_size: int, mesh, bg_image=None,
+                             bg_schedule=None,
+                             pipeline_unroll: int = 1) -> ParallelMultiStep:
+    """The data-parallel ``make_multi_step``, run by every rank of ``mesh``
+    (a ``parallel.mesh.Mesh``): the same call, on the device-resident set
+    replicated on each rank's device, ``batch_size`` the GLOBAL batch. Rank
+    ``r`` of the data axis trains on rows ``lo + r * b`` to ``lo + (r + 1)
+    * b`` of each batch (``lo = (start + i) * batch_size``, ``b =
+    batch_size / data``) and keeps those rows of the global batch's draws
+    (``step_generator(seed, step)``); the gradients and the forward
+    metrics are averaged over the data axis before the optimizer
+    (``ParallelMultiStep``). A world of one gives ``make_multi_step``'s
+    bits. ``ValueError`` if ``batch_size`` does not divide by the data
+    axis or the mesh has a model axis; ``pipeline_unroll`` other than 1
+    raises as for ``make_multi_step``."""
+    if pipeline_unroll != 1:
+        raise NotImplementedError(
+            "pipeline_unroll > 1: a replayed CUDA graph has no cross-step "
+            "fusion knob (ROADMAP Queue 1)")
+    return ParallelMultiStep(config, num_steps, batch_size, mesh, bg_image,
+                             bg_schedule)

@@ -47,6 +47,7 @@ import torch
 from air_tpu_torch.models.air import init_air_params
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.ops.schedules import annealed_value
+from air_tpu_torch.parallel.collectives import model_sum_
 from air_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -99,19 +100,27 @@ def bias_correction_replicas(decay: float, count: torch.Tensor) -> torch.Tensor:
     return 1.0 - torch.pow(torch.tensor(decay, **f32), count.to(**f32))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, sharded=None) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum over leaves, in leaf order, of each
-    leaf's sum of squares."""
+    leaf's sum of squares. ``sharded`` (with a ``mesh``) marks, in leaf
+    order, the leaves that are column slices on the model axis: their sums
+    of squares are summed over the model axis first, in one all-reduce."""
+    squares = [torch.sum(g * g) for g in tree_leaves(tree)]
+    if sharded is not None and any(sharded):
+        at = [i for i, s in enumerate(sharded) if s]
+        summed = model_sum_(torch.stack([squares[i] for i in at]), mesh)
+        for j, i in enumerate(at):
+            squares[i] = summed[j]
     total = 0
-    for g in tree_leaves(tree):
-        total = total + torch.sum(g * g)
+    for sq in squares:
+        total = total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm=global_norm):
     """optax.clip_by_global_norm: ``g`` if the norm is below ``max_norm``,
-    else ``(g / norm) * max_norm``."""
-    norm = global_norm(tree)
+    else ``(g / norm) * max_norm``; ``norm(tree)`` gives the norm."""
+    norm = norm(tree)
     return tree_map(
         lambda g: torch.where(norm < max_norm, g, (g / norm) * max_norm),
         tree)
@@ -210,11 +219,12 @@ class Optimizer:
             grads, state.mu, state.nu, dict(zip(REPLICA_SCALARS, rows)))
         return updates, self.advance(state, mu, nu)
 
-    def apply(self, grads, mu, nu, scalars: dict):
+    def apply(self, grads, mu, nu, scalars: dict, norm=global_norm):
         """The device part of ``update``: the freeze, the clip and Adam on
         the moment trees ``mu`` and ``nu``, from ``host_scalars`` (floats,
-        or 0-d tensors on the device that hold them). Returns (updates, mu,
-        nu).
+        or 0-d tensors on the device that hold them); the clip takes the
+        norm ``norm(grads)`` (``global_norm`` of a model axis's shards
+        under ``air_tpu_torch.parallel``). Returns (updates, mu, nu).
 
         PyTorch divides a tensor on the card by a host scalar as the
         product with the scalar's float32 reciprocal, and on the CPU
@@ -224,7 +234,7 @@ class Optimizer:
         that passes floats."""
         grads = self._frozen(grads)
         if self.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, norm)
 
         def unbias(m, name):
             if m.is_cuda:

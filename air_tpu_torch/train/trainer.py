@@ -40,6 +40,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from air_tpu_torch.data.loader import (DeviceDataPipeline, TrainLoader,
                                        to_device)
@@ -50,7 +51,10 @@ from air_tpu_torch.train.checkpoint import (checkpoint_meta,
                                             latest_checkpoint,
                                             load_checkpoint, save_checkpoint)
 from air_tpu_torch.train.evaluate import evaluate_params
-from air_tpu_torch.train.fast_pipeline import make_multi_step
+from air_tpu_torch.parallel.collectives import broadcast_object
+from air_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from air_tpu_torch.train.fast_pipeline import (make_multi_step,
+                                               make_parallel_multi_step)
 from air_tpu_torch.train.metrics import (MetricsWriter, named_leaves,
                                          summarize_outputs, to_host,
                                          variable_summaries)
@@ -61,6 +65,23 @@ from air_tpu_torch.train.steps import (make_eval_step,
 from air_tpu_torch.train.visualize import (save_grid_png,
                                            visualize_reconstructions)
 from air_tpu_torch.utils.profiling import StepTimer
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The stdout of a rank other than 0: nothing."""
+
+
+class _NoMetrics:
+    """The metrics sink of a rank other than 0: writes nothing."""
+
+    def write(self, step, scalars, prefix=""):
+        pass
+
+    def write_histograms(self, step, arrays, prefix=""):
+        pass
+
+    def close(self):
+        pass
 
 
 @dataclasses.dataclass
@@ -122,8 +143,10 @@ class TrainerConfig:
     # the JAX package's scan unroll of its fused K-step dispatch; a replayed
     # CUDA graph has no such knob (1 only)
     pipeline_unroll: int = 1
-    # data parallelism over several cards: not ported (ROADMAP Queue 1,
-    # multi-GPU)
+    # data parallelism: one Trainer per rank of a process group
+    # (air_tpu_torch.parallel.launch; python -m air_tpu_torch.training
+    # --data-parallel spawns them), batches split over the mesh's "data"
+    # axis; n_devices=None -> every rank of the group
     data_parallel: bool = False
     n_devices: int | None = None
     # host-loader gather threads (native C++ backend; reference
@@ -271,11 +294,23 @@ class Trainer:
         """``train_data``: AIRREC path or (images, digits);
         ``test_data``: (images [N, canvas^2], digits [N]) numpy arrays."""
         tcfg = trainer_config
-        if tcfg.data_parallel or tcfg.pipeline_unroll != 1:
+        if tcfg.pipeline_unroll != 1:
             raise NotImplementedError(
-                "data_parallel (ROADMAP Queue 1, multi-GPU) and "
-                "pipeline_unroll > 1 (a replayed CUDA graph has no "
-                "cross-step fusion knob; ROADMAP Queue 1) are not ported")
+                "pipeline_unroll > 1: a replayed CUDA graph has no "
+                "cross-step fusion knob (ROADMAP Queue 1)")
+        self.mesh = None
+        if tcfg.data_parallel:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "data_parallel runs one Trainer per rank of a process "
+                    "group: start the ranks with air_tpu_torch.parallel."
+                    "launch (python -m air_tpu_torch.training "
+                    "--data-parallel does)")
+            self.mesh = make_mesh(tcfg.n_devices)
+        # only rank 0 writes: the results folder, logs, summaries and
+        # checkpoints; the others train in step with it
+        self.rank0 = self.mesh is None or self.mesh.rank == 0
+        self._print = print if self.rank0 else _quiet
         self.config = model_config.replace(train=True)
         # the ACTIVE training config: starts as the base config; restart
         # schedule rotation replaces it per attempt. Evaluation always
@@ -283,11 +318,15 @@ class Trainer:
         self.train_config = self.config
         self.tcfg = tcfg
         self.device = torch.device(tcfg.device)
-        self.folder = prepare_results_folder(tcfg)
+        if self.rank0:
+            self.folder = prepare_results_folder(tcfg)
+            if tcfg.source_snapshot:
+                snapshot_source(self.folder)
+        if self.mesh is not None:
+            self.folder = broadcast_object(
+                self.folder if self.rank0 else None)
         self.models_dir = os.path.join(self.folder, "models")
         self.summary_dir = os.path.join(self.folder, "summary")
-        if tcfg.source_snapshot:
-            snapshot_source(self.folder)
 
         if tcfg.device_data:
             if isinstance(train_data, str):
@@ -297,10 +336,14 @@ class Trainer:
                 train_data[0], train_data[1], tcfg.batch_size,
                 seed=tcfg.seed, device=self.device)
         else:
+            put = to_device(self.device)
+            if self.mesh is not None:
+                # every rank loads the global batch and keeps its rows
+                put = (lambda batch, put=put:
+                       shard_batch(self.mesh, *put(batch)))
             self.loader = TrainLoader(
                 train_data, tcfg.batch_size, epochs=tcfg.epochs,
-                seed=tcfg.seed, prefetch=2,
-                device_put=to_device(self.device),
+                seed=tcfg.seed, prefetch=2, device_put=put,
                 reader_threads=tcfg.reader_threads)
         self.test_images, self.test_digits = test_data
 
@@ -331,8 +374,9 @@ class Trainer:
         self._build_train_steps()
         self.eval_step = make_eval_step(self.config)
         self.eval_summary_step = make_eval_summary_step(self.config)
-        self.metrics = MetricsWriter(self.summary_dir,
-                                     tensorboard=tcfg.tensorboard)
+        self.metrics = (MetricsWriter(self.summary_dir,
+                                      tensorboard=tcfg.tensorboard)
+                        if self.rank0 else _NoMetrics())
         # forward passes run, by kind: "train" steps, "grad" (instrumented
         # steps of the grad summaries) and "eval" (each eval forward)
         self.calls = collections.Counter()
@@ -348,8 +392,9 @@ class Trainer:
             if ckpt:
                 meta = checkpoint_meta(ckpt)
                 self.state = load_checkpoint(ckpt, self.config, self.loader,
-                                             meta=meta, device=self.device)
-                print(f"resumed from {ckpt} at step {self.state.step}")
+                                             meta=meta, device=self.device,
+                                             mesh=self.mesh)
+                self._print(f"resumed from {ckpt} at step {self.state.step}")
                 rec = meta.get("recovery")
                 if rec:
                     # resume the SAME rescue attempt: restart budget, eval
@@ -362,8 +407,13 @@ class Trainer:
                     if variant >= 0 and tcfg.restart_schedule_rotation:
                         self._apply_rotation_variant(variant)
                         self._build_train_steps()
-                    print(f"resumed recovery state: restarts="
-                          f"{self.restarts} variant={self._variant}")
+                    self._print(f"resumed recovery state: restarts="
+                                f"{self.restarts} variant={self._variant}")
+
+    def _save(self, step: int, **kw) -> None:
+        """A checkpoint of the state at ``step`` (rank 0 writes it)."""
+        save_checkpoint(self.models_dir, self.state, step, mesh=self.mesh,
+                        config=self.config, **kw)
 
     def _fresh_state(self, config: AIRConfig, seed: int):
         return create_train_state(config, seed=seed,
@@ -377,13 +427,18 @@ class Trainer:
         instrumented step."""
         bg_kw = {"bg_image": self.tcfg.bg_image,
                  "bg_schedule": self.tcfg.bg_schedule}
-        self.multi_step = make_multi_step(self.train_config,
-                                          self.tcfg.multi_step,
-                                          self.tcfg.batch_size, **bg_kw)
+        k, b = self.tcfg.multi_step, self.tcfg.batch_size
+        if self.mesh is None:
+            self.multi_step = make_multi_step(self.train_config, k, b,
+                                              **bg_kw)
+        else:
+            self.multi_step = make_parallel_multi_step(
+                self.train_config, k, b, self.mesh, **bg_kw)
         # the host loop's step: one replay on the batch it is given
         self.train_step = self.multi_step.step
         self.train_step_gs = make_train_step(self.train_config,
-                                             with_grad_stats=True, **bg_kw)
+                                             with_grad_stats=True,
+                                             pmean_axis=self.mesh, **bg_kw)
 
     def _apply_rotation_variant(self, variant: int):
         """Overlay rotation variant ``variant`` onto the BASE annealing
@@ -428,17 +483,18 @@ class Trainer:
             return None
         if restarts >= tcfg.max_restarts:
             if tcfg.stop_on_exhausted_restarts:
-                print(f"[stall detected @ {step}] accuracy {acc:.3f} flat "
-                      f"with restart budget exhausted — giving up early")
+                self._print(f"[stall detected @ {step}] accuracy {acc:.3f} "
+                            "flat with restart budget exhausted — giving up "
+                            "early")
                 return "giveup"
             return None
-        print(f"[stall detected @ {step}] test accuracy {acc:.3f} < "
-              f"{tcfg.stall_accuracy}; restarting (attempt "
-              f"{restarts + 2}/{tcfg.max_restarts + 1})")
+        self._print(f"[stall detected @ {step}] test accuracy {acc:.3f} < "
+                    f"{tcfg.stall_accuracy}; restarting (attempt "
+                    f"{restarts + 2}/{tcfg.max_restarts + 1})")
         # archive the stalled attempt's checkpoints so resume never picks a
         # stale higher-step file from a failed attempt
         stale = [f for f in os.listdir(self.models_dir)
-                 if f.startswith("air-model")]
+                 if f.startswith("air-model")] if self.rank0 else []
         if stale:
             attempt_dir = os.path.join(self.models_dir,
                                        f"stalled_attempt_{restarts + 1}")
@@ -449,8 +505,8 @@ class Trainer:
         rotation = tcfg.restart_schedule_rotation
         if rotation:
             self._apply_rotation_variant(restarts)
-            print(f"[restart] schedule variant {self._variant}: "
-                  f"{sorted(rotation[self._variant])}")
+            self._print(f"[restart] schedule variant {self._variant}: "
+                        f"{sorted(rotation[self._variant])}")
         new_seed = attempt_seed(tcfg.seed, restarts + 1,
                                 tcfg.attempt_seed_stride)
         self.metrics.write(step, {
@@ -467,7 +523,9 @@ class Trainer:
     # -- summary helpers -------------------------------------------------------
     def _write_var_summaries(self, step: int):
         """Per-variable scalar stats (JSONL) + true histograms (TB sink);
-        reference air/air_model.py:643-649."""
+        reference air/air_model.py:643-649. Rank 0's."""
+        if not self.rank0:
+            return
         self.metrics.write(step, variable_summaries(self.state.params),
                            prefix="var/")
         if self.tcfg.tensorboard:
@@ -516,6 +574,15 @@ class Trainer:
         return self._test_dev
 
     def write_eval_summaries(self, step: int, with_images: bool) -> float:
+        """The eval summaries of the test set at ``step`` (rank 0 evaluates
+        and writes them); returns the test accuracy, rank 0's on every
+        rank, so that every rank takes the same decisions on it."""
+        if self.mesh is None:
+            return self._eval_summaries(step, with_images)
+        acc = self._eval_summaries(step, with_images) if self.rank0 else None
+        return broadcast_object(acc)
+
+    def _eval_summaries(self, step: int, with_images: bool) -> float:
         n = len(self.test_images)
         if n <= self.tcfg.eval_batch_size:
             # eval + the full metric taxonomy on the card; only the
@@ -579,8 +646,8 @@ class Trainer:
             for s in range(first, end_step + 1, L):
                 i = s - (end_step - span) - 1
                 values = {name: v[i] for name, v in host.items()}
-                print(f"iteration {s}\tloss {float(values['loss']):.3f}\t"
-                      f"accuracy {float(values['accuracy']):.2f}")
+                self._print(f"iteration {s}\tloss {float(values['loss']):.3f}\t"
+                            f"accuracy {float(values['accuracy']):.2f}")
                 self.metrics.write(s, values, prefix="train/")
 
         t_start = time.time()
@@ -590,8 +657,8 @@ class Trainer:
         step = self.state.step
         total_epochs = tcfg.epochs if tcfg.epochs is not None else 10 ** 9
         max_iters = tcfg.max_iterations
-        print(f"training[device-data]: batch={tcfg.batch_size} "
-              f"K={K} epochs={tcfg.epochs} start_step={step}")
+        self._print(f"training[device-data]: batch={tcfg.batch_size} "
+                    f"K={K} epochs={tcfg.epochs} start_step={step}")
 
         while self.loader.epoch < total_epochs:
             if max_iters is not None and step >= max_iters:
@@ -600,10 +667,11 @@ class Trainer:
                 acc = self.write_eval_summaries(
                     step, cadence_hit(step, tcfg.img_summaries_every))
                 last_eval = (step, acc)
-                print(f"[eval @ {step}] test accuracy {acc:.4f}")
+                self._print(f"[eval @ {step}] test accuracy {acc:.4f}")
                 if tcfg.stop_at_accuracy is not None \
                         and acc >= tcfg.stop_at_accuracy:
-                    print(f"target accuracy {tcfg.stop_at_accuracy} reached")
+                    self._print(f"target accuracy {tcfg.stop_at_accuracy} "
+                                "reached")
                     break
                 verdict = self._maybe_restart_on_stall(step, acc)
                 if verdict == "giveup":
@@ -616,12 +684,14 @@ class Trainer:
                 if cadence_hit(step, tcfg.var_summaries_every):
                     self._write_var_summaries(step)
             if cadence_hit(step, tcfg.save_params_every):
-                save_checkpoint(self.models_dir, self.state, step,
-                                loader_state=self.loader.state(),
+                self._save(step, loader_state=self.loader.state(),
                                 recovery=self.recovery_meta())
             if cadence_hit(step, tcfg.grad_summaries_every):
                 # one instrumented step on the next batch, not applied
-                _, gm = self._grad_step(*self.loader.gather_batch())
+                batch = self.loader.gather_batch()
+                if self.mesh is not None:
+                    batch = shard_batch(self.mesh, *batch)
+                _, gm = self._grad_step(*batch)
                 self._write_grad_summaries(step, gm)
 
             k = self.loader.chunk(K)
@@ -649,8 +719,7 @@ class Trainer:
             acc = last_eval[1]
         else:
             acc = self.write_eval_summaries(final_step, with_images=True)
-        save_checkpoint(self.models_dir, self.state, final_step,
-                        loader_state=self.loader.state(),
+        self._save(final_step, loader_state=self.loader.state(),
                         recovery=self.recovery_meta())
         return self._ended(final_step, acc, images_seen, t_start,
                            restarts=self.restarts)
@@ -668,10 +737,11 @@ class Trainer:
         summary = self.timer.summary()
         steady = (1e3 / summary["items_per_sec"]
                   if summary["items_per_sec"] else 0.0)
-        print(f"training has ended: step {final_step}, "
-              f"test accuracy {acc:.4f}, {ips:.0f} images/sec, "
-              f"{ms:.3f} ms/step in the train steps ({steady:.3f} after the "
-              f"first call, which took {summary['first_step_ms']:.1f} ms)")
+        self._print(f"training has ended: step {final_step}, "
+                    f"test accuracy {acc:.4f}, {ips:.0f} images/sec, "
+                    f"{ms:.3f} ms/step in the train steps ({steady:.3f} "
+                    f"after the first call, which took "
+                    f"{summary['first_step_ms']:.1f} ms)")
         return {"step": final_step, "test_accuracy": acc,
                 "images_per_sec": ips, "ms_per_step": ms,
                 "steady_ms_per_step": steady,
@@ -682,9 +752,9 @@ class Trainer:
         log cadence."""
         if cadence_hit(step, self.tcfg.log_every):
             values = to_host(metrics)
-            print(f"iteration {step + 1}\tloss "
-                  f"{float(values['loss']):.3f}\taccuracy "
-                  f"{float(values['accuracy']):.2f}")
+            self._print(f"iteration {step + 1}\tloss "
+                        f"{float(values['loss']):.3f}\taccuracy "
+                        f"{float(values['accuracy']):.2f}")
             self.metrics.write(step, values, prefix="train/")
 
     # -- main loop -------------------------------------------------------------
@@ -696,8 +766,8 @@ class Trainer:
         images_seen = 0
         self.timer = StepTimer(warmup=1)
         step = self.state.step
-        print(f"training: batch={tcfg.batch_size} epochs={tcfg.epochs} "
-              f"start_step={step}")
+        self._print(f"training: batch={tcfg.batch_size} epochs={tcfg.epochs} "
+                    f"start_step={step}")
         # loader position to checkpoint: captured BEFORE the current batch
         # was pulled, so a resumed run re-delivers the in-flight batch the
         # saved model state has not trained on yet (exact-resume contract)
@@ -710,17 +780,17 @@ class Trainer:
             if cadence_hit(step, tcfg.num_summaries_every):
                 with_images = cadence_hit(step, tcfg.img_summaries_every)
                 acc = self.write_eval_summaries(step, with_images)
-                print(f"[eval @ {step}] test accuracy {acc:.4f}")
+                self._print(f"[eval @ {step}] test accuracy {acc:.4f}")
                 if tcfg.stop_at_accuracy is not None \
                         and acc >= tcfg.stop_at_accuracy:
-                    print(f"target accuracy {tcfg.stop_at_accuracy} reached")
+                    self._print(f"target accuracy {tcfg.stop_at_accuracy} "
+                                "reached")
                     break
                 if cadence_hit(step, tcfg.var_summaries_every):
                     self._write_var_summaries(step)
 
             if cadence_hit(step, tcfg.save_params_every):
-                save_checkpoint(self.models_dir, self.state, step,
-                                loader_state=loader_state_snapshot,
+                self._save(step, loader_state=loader_state_snapshot,
                                 recovery=self.recovery_meta())
 
             if cadence_hit(step, tcfg.grad_summaries_every):
@@ -742,6 +812,5 @@ class Trainer:
         # position the saved params actually correspond to (exact-resume)
         final_step = self.state.step
         acc = self.write_eval_summaries(final_step, with_images=True)
-        save_checkpoint(self.models_dir, self.state, final_step,
-                        loader_state=loader_state_snapshot)
+        self._save(final_step, loader_state=loader_state_snapshot)
         return self._ended(final_step, acc, images_seen, t_start)

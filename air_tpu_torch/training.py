@@ -13,9 +13,12 @@ else from the committed digit pool (``air_tpu_torch.data.get_mnist``).
 every train step, 1-2 in every eval), ``pallas`` (the streamed-weight
 kernels) or ``xla`` (plain PyTorch products, no kernel; the only path of
 ``--decoder-layout stepparallel``). ``--compute-dtype bfloat16`` and
-``--rnn-input-hoist`` take every path. Flags whose path the port does not
-have yet (``--data-parallel``, ``--pipeline-unroll`` above 1) raise
-``NotImplementedError``.
+``--rnn-input-hoist`` take every path. ``--data-parallel`` trains on
+``--n-devices`` cards (every visible one by default): one process per card,
+rank r on ``cuda:r``, over NCCL, the global batch split over the ranks;
+with ``--device cpu`` the ranks share the CPU over gloo. The kernels are
+built once before the ranks start. A flag whose path the port does not
+have (``--pipeline-unroll`` above 1) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ import argparse
 import os
 import sys
 
+import torch
+
 # flags whose path the port lacks, and the ROADMAP item that brings it
 UNPORTED = {
-    "--data-parallel": "Queue 1, multi-GPU",
     "--pipeline-unroll > 1": "Queue 1: a replayed CUDA graph has no "
                              "cross-step fusion knob",
 }
@@ -61,8 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the JAX package's K-step scan unroll; the "
                              "port takes 1 only")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported: raises")
-    parser.add_argument("--n-devices", type=int, default=None)
+                        help="one rank per card (cuda:r, NCCL), the batch "
+                             "split over them; with --device cpu, ranks on "
+                             "the CPU over gloo")
+    parser.add_argument("--n-devices", type=int, default=None,
+                        help="ranks of --data-parallel (default: every "
+                             "visible card; 1 with --device cpu)")
     parser.add_argument("--synthetic-data", type=int, default=0,
                         help="if no dataset exists, generate one with N "
                              "images per digit stratum first")
@@ -143,7 +151,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose path the port lacks."""
     asked = {
-        "--data-parallel": args.data_parallel,
         "--pipeline-unroll > 1": args.pipeline_unroll != 1,
     }
     for flag, on in asked.items():
@@ -250,6 +257,8 @@ def configs(args):
         tensorboard=args.tensorboard,
         device_data=args.device_data,
         multi_step=args.multi_step,
+        data_parallel=args.data_parallel,
+        n_devices=args.n_devices,
         reader_threads=args.reader_threads,
         stop_at_accuracy=args.stop_at_accuracy,
         stall_detect_step=args.stall_restart_step or None,
@@ -269,15 +278,23 @@ def configs(args):
     return model_config, trainer_config
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
-    check_ported(args)
-    if args.synthetic_data and not os.path.exists(args.train_data):
-        generate_data(args)
-    if not os.path.exists(args.train_data):
-        sys.exit(f"training data not found: {args.train_data} "
-                 f"(pass --synthetic-data N)")
+def rank_devices(args) -> tuple[str, list]:
+    """(backend, device of each rank) of ``--data-parallel``: rank r on
+    ``cuda:r`` over NCCL, ``--n-devices`` of them (every visible card by
+    default); with ``--device cpu``, ``--n-devices`` ranks (1 by default)
+    on the CPU over gloo. Raises if fewer cards are visible than asked."""
+    if torch.device(args.device).type == "cpu":
+        return "gloo", ["cpu"] * (args.n_devices or 1)
+    visible = torch.cuda.device_count()
+    n = args.n_devices or visible
+    if not 1 <= n <= visible:
+        raise RuntimeError(f"--data-parallel over {n} cards: {visible} "
+                           "visible")
+    return "nccl", [f"cuda:{r}" for r in range(n)]
 
+
+def train(args) -> dict:
+    """The Trainer of ``args`` on ``args.device``, trained: its result."""
     from air_tpu_torch.data.loader import load_test_data
     from air_tpu_torch.train.trainer import Trainer
 
@@ -286,6 +303,34 @@ def main(argv=None) -> dict:
     trainer = Trainer(model_config, trainer_config, args.train_data,
                       test_data)
     return trainer.train()
+
+
+def train_rank(rank: int, device, args) -> dict:
+    """One rank of ``--data-parallel`` (``parallel.launch``'s function):
+    the Trainer on this rank's device."""
+    args.device = str(device)
+    args.n_devices = torch.distributed.get_world_size()
+    return train(args)
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    if args.synthetic_data and not os.path.exists(args.train_data):
+        generate_data(args)
+    if not os.path.exists(args.train_data):
+        sys.exit(f"training data not found: {args.train_data} "
+                 f"(pass --synthetic-data N)")
+    if not args.data_parallel:
+        return train(args)
+
+    from air_tpu_torch.parallel.launch import launch
+
+    backend, devices = rank_devices(args)
+    if backend == "nccl":
+        from air_tpu_torch.kernels import build
+        build.load_all()        # once, before the ranks look for them
+    return launch(train_rank, backend, devices, (args,), timeout=None)[0]
 
 
 if __name__ == "__main__":

@@ -138,6 +138,37 @@ line with the card's name and power limit as nvidia-smi reports them:
               per step (torch.profiler) and the first call (with the
               capture), captured and eager, for the single-seed step and
               the seed-parallel step at S = 1, 4, 10 and 16.
+ 11. parallel multi-device training (air_tpu_torch.parallel) at the robust
+              default's full width on phase 5's batch, its ranks spawned
+              by air_tpu_torch.parallel.launch on the one card. (a) NCCL,
+              a world of one: PARALLEL_EAGER eager data-parallel steps
+              bit-equal to the single-card eager steps, TRAIN_STEPS
+              captured ones (make_parallel_multi_step: two graphs around
+              the all-reduce) bit-equal to phases 5 and 10, ms/step of the
+              captured single-card and data-parallel steps in the rank;
+              ``python -m air_tpu_torch.training --data-parallel
+              --n-devices 1 --device-data`` for PARALLEL_TRAINER_STEPS
+              steps and again from its step-PARALLEL_RESUME_AT checkpoint,
+              bit-exact. (b) gloo, 2 ranks, data axis 2: step 0 against
+              the single-card step with the same draws: its all-reduced
+              gradients against the mean of the single card's gradients on
+              the ranks' halves of the 64 images (GRAD_TOL), against the
+              whole batch no further than those halves are from it (on the
+              card a product's rounding depends on its shape, and this
+              model's backward amplifies it), the loss (GRAD_TOL) and the
+              params after the step (phase 9's ``apart_ok``); then
+              PARALLEL_STEPS captured steps; each rank launches kernels 1-4
+              max_steps times a step and nothing else, both end on one
+              params digest, phase 5's progress rule holds. (c) gloo, 4
+              ranks, data 2 x model 2: the LSTM gate kernel and the VAE
+              hidden kernels and their moments held as column halves; step
+              0 with rnn_input_hoist off and on against the single-card
+              step: the loss (SEED_LOSS_TOL), the params after the step
+              (``apart_ok``), and the gradients (the shards against their
+              columns) and their norm against the single card's halves
+              (MODEL_GRAD_TOL), printed beside the single card's own
+              halves-to-whole spread. Gloo on one card checks
+              the algorithm; it is no speed figure.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -158,7 +189,6 @@ import struct
 import tempfile
 import time
 import zlib
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -170,14 +200,21 @@ from air_tpu_torch.kernels import build, st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
+from air_tpu_torch.parallel.collectives import take_slice
+from air_tpu_torch.parallel.launch import launch
+from air_tpu_torch.parallel.mesh import (gather_state, make_mesh,
+                                         param_sharding, shard_batch,
+                                         shard_state)
+from air_tpu_torch.parallel.train_parallel import make_parallel_train_step
 from air_tpu_torch.serve.model_wrapper import ModelWrapper
 from air_tpu_torch.train.checkpoint import (checkpoint_arch,
                                             latest_checkpoint,
                                             load_checkpoint, load_params,
                                             save_checkpoint)
-from air_tpu_torch.train.fast_pipeline import make_multi_step
+from air_tpu_torch.train.fast_pipeline import (make_multi_step,
+                                               make_parallel_multi_step)
 from air_tpu_torch.train.metrics import summarize_outputs
-from air_tpu_torch.train.state import create_train_state
+from air_tpu_torch.train.state import create_train_state, global_norm
 from air_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        step_generator)
 from air_tpu_torch.train.multi_seed import (create_multi_seed_state,
@@ -187,7 +224,8 @@ from air_tpu_torch.train.multi_seed import (create_multi_seed_state,
                                             replica_batch, replica_gradients,
                                             replica_noise)
 from air_tpu_torch.train.trainer import Trainer
-from air_tpu_torch.tree import tree_leaves, tree_leaves_with_path
+from air_tpu_torch.tree import (path_name, tree_leaves, tree_leaves_with_path,
+                                tree_unflatten)
 from air_tpu_torch.utils.profiling import StepTimer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -195,7 +233,6 @@ CKPT = os.path.join(REPO, "model", "air-model-cnn-47500.npz")
 RAW_CKPT = os.path.join(REPO, "model", "air-model-80000.npz")
 FIXTURE = os.path.join(REPO, "air_tpu_torch", "assets", "serve_canvases.npz")
 MODULES = (st_inline, st_pallas, st_fused)
-LIBRARIES = ("st_inline", "st_pallas", "st_fused")
 DEVICE = "cuda"
 
 TIME_BUDGET_S = 300.0
@@ -249,6 +286,19 @@ SWEEP_K = 50
 SEED_TIMED = (1, 4, 10, 16)  # S of the timings
 # phase 10: steps across the end of the training CLI's z_pres prior hold
 HOLD_STEPS = 10
+# phase 11: multi-device training, its ranks on the one card
+PARALLEL_EAGER = 10          # (a) eager steps of the NCCL world of one
+PARALLEL_STEPS = 30          # (b) captured steps of the gloo world of two
+PARALLEL_K = 10              # (b) steps per call
+PARALLEL_TRAINER_STEPS = 40  # (a) the driver's run, resumed from the middle
+PARALLEL_RESUME_AT = 20
+RANK_SECONDS = 600           # the limit of each launch of ranks
+# (c) step 0's gradients and their norm on data 2 x model 2 against the
+# single card's on the ranks' halves: the card read 5.0e-3-1.0e-2 (a
+# column-sliced product rounds otherwise, and the BCE's 1 / (x + 1e-9)
+# amplifies it); a gradient of the right sign and the wrong size (a x2
+# in the model axis's backward) reads O(1)
+MODEL_GRAD_TOL = 5e-2
 # the kernels each path launches: (forward, backward)
 PATHS = {
     "inline": (("inline_attention_read", "inline_write_accumulate"),
@@ -1192,21 +1242,29 @@ def want_kernels(impl: str, steps: int) -> dict:
     return {k: steps for k in PATHS[impl][0] + PATHS[impl][1]}
 
 
-def params_apart(a_tree, b_tree, lr: float, steps: int) -> tuple:
-    """(max |diff|, mean |diff| over every element) of two param trees
-    trained ``steps`` Adam steps with bfloat16 moments from the same state;
-    fails beyond 2 * steps * lr (and 1e-6 for the params' own rounding) or
-    a mean above steps * lr * 2**-7. Adam moves an element by about lr
-    whatever its gradient's size: a gradient element that rounding moves
-    across zero gives steps up to 2 * lr apart, and a stored moment that
-    rounds to the other bfloat16 neighbour (2**-8 relative) an update up to
-    2**-7 * lr apart."""
+def param_diffs(a_tree, b_tree) -> tuple:
+    """(max |diff|, mean |diff| over every element) of two param trees."""
     diffs = [(a - b).abs().reshape(-1)
              for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree))]
-    worst = max(float(d.max()) for d in diffs)
-    mean = float(torch.cat(diffs).mean())
-    if not (worst <= 2 * steps * lr + 1e-6
-            and mean <= steps * lr * 2 ** -7):
+    return (max(float(d.max()) for d in diffs),
+            float(torch.cat(diffs).mean()))
+
+
+def apart_ok(worst: float, mean: float, lr: float, steps: int) -> bool:
+    """``param_diffs`` of two param trees trained ``steps`` Adam steps with
+    bfloat16 moments from the same state, within 2 * steps * lr (and 1e-6
+    for the params' own rounding) and a mean within steps * lr * 2**-7.
+    Adam moves an element by about lr whatever its gradient's size: a
+    gradient element that rounding moves across zero gives steps up to 2 *
+    lr apart, and a stored moment that rounds to the other bfloat16
+    neighbour (2**-8 relative) an update up to 2**-7 * lr apart."""
+    return worst <= 2 * steps * lr + 1e-6 and mean <= steps * lr * 2 ** -7
+
+
+def params_apart(a_tree, b_tree, lr: float, steps: int) -> tuple:
+    """``param_diffs``; fails unless ``apart_ok``."""
+    worst, mean = param_diffs(a_tree, b_tree)
+    if not apart_ok(worst, mean, lr, steps):
         fail(f"params apart by {worst} (bound {2 * steps * lr}), mean "
              f"{mean} (bound {steps * lr * 2 ** -7})")
     return worst, mean
@@ -1301,10 +1359,11 @@ def captured_run(config, state0, images, digits, steps: int) -> tuple:
 
 
 def check_captured(train_cfg, state0, images, digits, eager_runs: dict,
-                   seeds_run: tuple, card_line: str) -> dict:
+                   seeds_run: tuple, card_line: str) -> tuple:
     """Phase 10. Returns the launches of each path's kernels over its
-    TRAIN_STEPS captured steps."""
-    captured_launches = {}
+    TRAIN_STEPS captured steps, and the captured single-seed step's
+    ms/step."""
+    captured_launches, single_ms = {}, None
     for impl in (*PATHS, "xla"):
         config = train_cfg.replace(st_impl=impl)
         if impl not in eager_runs:       # phase 5 trains only the paths
@@ -1412,6 +1471,8 @@ def check_captured(train_cfg, state0, images, digits, eager_runs: dict,
         s_eff = max(n_s, 1)
         for captured in (True, False):
             t = step_times(config, n_s, images, digits, captured)
+            if n_s == 0 and captured:
+                single_ms = t["ms"]
             say("captured", card_line, (f"seed-parallel step S={n_s}"
                                         if n_s else "single-seed step")
                 + f" ({'captured' if captured else 'eager'}, inline, batch "
@@ -1421,7 +1482,367 @@ def check_captured(train_cfg, state0, images, digits, eager_runs: dict,
                 f"{t['busy_ms']:.3f} ms of device time (torch.profiler, 3 "
                 f"steps; {t['busy_ms'] / t['ms']:.1%} of the step); first "
                 f"call {t['first_ms']:.1f} ms")
-    return captured_launches
+    return captured_launches, single_ms
+
+
+def grad_errors(got, want, placements=None, model_rank=0) -> float:
+    """The largest |got - want| / max(1, max |want leaf|) over two gradient
+    trees (phase 5's measure); a leaf ``placements`` marks sharded is held
+    against this model rank's half of ``want``'s."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        if placements is not None and placements[i]:
+            w = take_slice(w, 2, model_rank)
+        worst = max(worst, float((g - w).abs().max())
+                    / max(1.0, float(w.abs().max())))
+    return worst
+
+
+def rank_nccl(rank, device, train_cfg, images, digits) -> dict:
+    """Phase 11 (a) in the one rank of an NCCL world: PARALLEL_EAGER eager
+    data-parallel steps, TRAIN_STEPS captured ones (phase 10's calls), and
+    ms/step (CUDA events, 10 steps) of the captured single-card step and
+    of the captured data-parallel one."""
+    images, digits = (torch.from_numpy(a).to(device) for a in (images,
+                                                                digits))
+    mesh = make_mesh()
+    state0 = create_train_state(train_cfg, seed=0, device=device)
+    step = make_parallel_train_step(train_cfg, mesh)
+    reset_launches()
+    state, losses = state0, []
+    for _ in range(PARALLEL_EAGER):
+        state, m = step(state, *shard_batch(mesh, images, digits))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out = {"eager": (losses, digest(tree_leaves(state.params)), launches())}
+    multi = make_parallel_multi_step(train_cfg, TRAIN_STEPS, BATCH, mesh)
+    perm = torch.arange(BATCH, device=device)
+    reset_launches()
+    state, m1 = multi(state0, images, digits, perm, 0, num_steps=1)
+    state, m2 = multi(state, images, digits, perm, 1,
+                      num_steps=TRAIN_STEPS - 1)
+    torch.cuda.synchronize()
+    out["captured"] = (torch.cat([m1["loss"], m2["loss"]]).tolist(),
+                       digest(tree_leaves(state.params)), launches())
+    out["ms"] = {}
+    for name, one in (
+            ("single-card", make_multi_step(train_cfg, 1, BATCH)),
+            ("data-parallel", make_parallel_multi_step(train_cfg, 1, BATCH,
+                                                       mesh))):
+        holder = [state0]
+        for _ in range(3):
+            holder[0] = one.step(holder[0], images, digits)[0]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            holder[0] = one.step(holder[0], images, digits)[0]
+        end.record()
+        torch.cuda.synchronize()
+        out["ms"][name] = start.elapsed_time(end) / 10
+    return out
+
+
+def single_card_step0(config, state0, images, digits, rows: int) -> dict:
+    """The single-card step 0 on the whole batch (its new params and
+    gradients) and the mean of its gradients on the batch's halves of
+    ``rows`` rows with their rows of the same draws: the data-parallel
+    step's arithmetic on one card."""
+    device = images.device
+    step = make_train_step(config, with_grad_stats=True)
+    new, m = step(state0, images, digits)
+    noise = draw_noise(config, images.shape[0],
+                       step_generator(state0.seed, 0, device), device)
+    parts = []
+    for lo in range(0, images.shape[0], rows):
+        at = slice(lo, lo + rows)
+        parts.append(tree_leaves(step(
+            state0, images[at], digits[at],
+            noise={k: v[:, at] for k, v in noise.items()})[1][
+                "grad_tensors"]["original"]))
+    grads = m["grad_tensors"]["original"]
+    halves = [sum(leaf) / len(parts) for leaf in zip(*parts)]
+    return {"params": new.params, "loss": float(m["loss"]), "grads": grads,
+            "halves": tree_unflatten(grads, halves)}
+
+
+def rank_gloo_data(rank, device, train_cfg, images, digits) -> dict:
+    """Phase 11 (b) in one rank of a gloo world of two on the card: step 0
+    (eager) against the single-card step, then PARALLEL_STEPS captured
+    data-parallel steps."""
+    images, digits = (torch.from_numpy(a).to(device) for a in (images,
+                                                                digits))
+    mesh = make_mesh(2)
+    state0 = create_train_state(train_cfg, seed=0, device=device)
+    reset_launches()
+    new, m_p = make_parallel_train_step(train_cfg, mesh,
+                                        with_grad_stats=True)(
+        state0, *shard_batch(mesh, images, digits))
+    torch.cuda.synchronize()
+    out = {"step_launches": launches()}
+    one = single_card_step0(train_cfg, state0, images, digits,
+                            BATCH // mesh.data)
+    grads = m_p["grad_tensors"]["original"]
+    out.update(loss=(float(m_p["loss"]), one["loss"]),
+               grad_err=grad_errors(grads, one["halves"]),
+               full_err=grad_errors(grads, one["grads"]),
+               order_err=grad_errors(one["halves"], one["grads"]),
+               apart=param_diffs(new.params, one["params"]))
+    multi = make_parallel_multi_step(train_cfg, PARALLEL_K, BATCH, mesh)
+    perm = torch.arange(BATCH, device=device)
+    reset_launches()
+    state, losses, recons = state0, [], []
+    for start in range(0, PARALLEL_STEPS, PARALLEL_K):
+        state, m = multi(state, images, digits, perm, start)
+        losses += m["loss"].tolist()
+        recons += m["reconstruction_loss"].tolist()
+    torch.cuda.synchronize()
+    out.update(run_launches=launches(), losses=losses, recons=recons,
+               params=digest(tree_leaves(state.params)),
+               still=[path_name(p) for (p, a), b in zip(
+                   tree_leaves_with_path(state.params),
+                   tree_leaves(state0.params)) if torch.equal(a, b)])
+    return out
+
+
+def rank_gloo_model(rank, device, train_cfg, images, digits) -> dict:
+    """Phase 11 (c) in one rank of a gloo world of four on the card, data 2
+    x model 2: the shards' shapes, and step 0 against the single-card step
+    with the rnn input hoist off and on."""
+    images, digits = (torch.from_numpy(a).to(device) for a in (images,
+                                                                digits))
+    mesh = make_mesh(4, model_axis=2)
+    out = {}
+    for hoist in (False, True):
+        config = train_cfg.replace(rnn_input_hoist=hoist)
+        state0 = create_train_state(config, seed=0, device=device)
+        state = shard_state(mesh, state0)
+        shapes = {path_name(p): (tuple(t.shape), tuple(m.shape))
+                  for (p, t), m in zip(tree_leaves_with_path(state.params),
+                                       tree_leaves(state.opt_state.mu))}
+        reset_launches()
+        new, m_p = make_parallel_train_step(config, mesh,
+                                            with_grad_stats=True)(
+            state, *shard_batch(mesh, images, digits))
+        torch.cuda.synchronize()
+        step_launches = launches()
+        one = single_card_step0(config, state0, images, digits,
+                                BATCH // mesh.data)
+        placed = param_sharding(mesh, state0.params)
+        grads = m_p["grad_tensors"]["original"]
+        norm = float(global_norm(one["halves"]))
+        out[hoist] = {
+            "shapes": shapes, "step_launches": step_launches,
+            "loss": (float(m_p["loss"]), one["loss"]),
+            "norm_err": abs(float(m_p["grad_norm"]) - norm) / norm,
+            "grad_err": grad_errors(grads, one["halves"], placed,
+                                    mesh.model_rank),
+            "full_err": grad_errors(grads, one["grads"], placed,
+                                    mesh.model_rank),
+            "order_err": grad_errors(one["halves"], one["grads"]),
+            "apart": param_diffs(gather_state(mesh, new, config).params,
+                                 one["params"])}
+    return out
+
+
+def check_parallel(train_cfg, images, digits, eager_runs: dict,
+                   single_ms: float, card_line: str) -> dict:
+    """Phase 11 on phase 5's batch, through st_impl="inline" (kernels 1-4).
+    Returns the launches of kernels 1-4 in (a)'s TRAIN_STEPS captured
+    data-parallel steps."""
+    train_cfg = train_cfg.replace(st_impl="inline")
+    host = (images.cpu().numpy(), digits.cpu().numpy())
+    # every rank on the one card, by its index
+    card_0 = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    want_step = want_kernels("inline", train_cfg.max_steps)
+
+    def loss_rel(pair) -> float:
+        return abs(pair[0] - pair[1]) / abs(pair[1])
+
+    def moved_by(counts: dict, steps: int, what: str) -> None:
+        want = {k: steps * want_step.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"{what} launched {counts}, expected {want}")
+
+    # (a) NCCL, a world of one
+    single = make_train_step(train_cfg)
+    state, losses = create_train_state(train_cfg, seed=0, device=DEVICE), []
+    for _ in range(PARALLEL_EAGER):
+        state, m = single(state, images, digits)
+        losses.append(float(m["loss"]))
+    a = launch(rank_nccl, "nccl", [card_0], (train_cfg, *host),
+               timeout=RANK_SECONDS)[0]
+    e_losses, e_params, e_launches = a["eager"]
+    moved_by(e_launches, PARALLEL_EAGER, "(a) the eager data-parallel steps")
+    if (e_losses, e_params) != (losses, digest(tree_leaves(state.params))):
+        fail(f"(a) {PARALLEL_EAGER} eager data-parallel steps over NCCL "
+             f"part from the single-card steps: {e_losses} vs {losses}")
+    c_losses, c_params, c_launches = a["captured"]
+    moved_by(c_launches, TRAIN_STEPS, "(a) the captured data-parallel steps")
+    if (c_losses, c_params) != eager_runs["inline"]:
+        fail(f"(a) {TRAIN_STEPS} captured data-parallel steps over NCCL "
+             f"part from phases 5 and 10: params {c_params} vs "
+             f"{eager_runs['inline'][1]}")
+    say("parallel", card_line, f"(a) NCCL world of one: {PARALLEL_EAGER} "
+        f"eager data-parallel steps bit-equal to the single-card eager "
+        f"steps (losses, params_sha256={e_params}); {TRAIN_STEPS} captured "
+        f"data-parallel steps bit-equal to phases 5 and 10 (params_sha256="
+        f"{c_params}); launches "
+        f"{ {k: v for k, v in c_launches.items() if v} }")
+    say("parallel", card_line, "(a) captured step ms (CUDA events, 10 "
+        "steps, batch 64, in the rank): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in a["ms"].items())
+        + f"; phase 10's single-seed captured step {single_ms:.3f}")
+    check_parallel_trainer(card_line)
+
+    # (b) gloo, two ranks on the card, data axis 2
+    b = launch(rank_gloo_data, "gloo", [card_0] * 2, (train_cfg, *host),
+               timeout=RANK_SECONDS)
+    lr = train_cfg.learning_rate
+    for r, out in enumerate(b):
+        moved_by(out["step_launches"], 1, f"(b) rank {r}'s step 0")
+        moved_by(out["run_launches"], PARALLEL_STEPS,
+                 f"(b) rank {r}'s {PARALLEL_STEPS} steps")
+        rel = loss_rel(out["loss"])
+        if not (rel <= GRAD_TOL and out["grad_err"] <= GRAD_TOL
+                and out["full_err"] <= max(GRAD_TOL, out["order_err"])
+                and apart_ok(*out["apart"], lr, 1)):
+            fail(f"(b) rank {r} step 0 against the single-card step: loss "
+                 f"rel {rel}, gradients {out['grad_err']} against its halves "
+                 f"(tol {GRAD_TOL}), {out['full_err']} against the whole "
+                 f"batch (the card's own halves {out['order_err']}), params "
+                 f"apart {out['apart']}")
+        first5 = float(np.mean(out["recons"][:5]))
+        last5 = float(np.mean(out["recons"][-5:]))
+        if (not np.all(np.isfinite(out["losses"])) or out["still"]
+                or not last5 < first5):
+            fail(f"(b) rank {r}: losses {out['losses']}, leaves that did "
+                 f"not move {out['still']}")
+    if b[0]["params"] != b[1]["params"]:
+        fail(f"(b) the ranks' params part: {[o['params'] for o in b]}")
+    say("parallel", card_line, f"(b) gloo, 2 ranks on the card: step 0's "
+        f"all-reduced gradients against the single-card step on the ranks' "
+        f"halves of the batch {max(o['grad_err'] for o in b):.3g} (tol "
+        f"{GRAD_TOL}), on the whole batch {max(o['full_err'] for o in b):.3g}"
+        f" (the single card's halves against its whole batch "
+        f"{b[0]['order_err']:.3g}), params after the step apart by "
+        f"{b[0]['apart'][0]:.3g} (mean {b[0]['apart'][1]:.3g}; bound "
+        f"{2 * lr:.3g}), loss {b[0]['loss'][0]:.4f} vs "
+        f"{b[0]['loss'][1]:.4f}; "
+        f"{PARALLEL_STEPS} captured steps, each rank launching kernels 1-4 "
+        f"{train_cfg.max_steps} times a step; reconstruction loss mean of "
+        f"first 5 {np.mean(b[0]['recons'][:5]):.3f}, last 5 "
+        f"{np.mean(b[0]['recons'][-5:]):.3f}; both ranks params_sha256="
+        f"{b[0]['params']} (a correctness check: two processes on one card "
+        "time nothing)")
+
+    # (c) gloo, four ranks on the card, data 2 x model 2
+    c = launch(rank_gloo_model, "gloo", [card_0] * 4, (train_cfg, *host),
+               timeout=RANK_SECONDS)
+    units = train_cfg.rnn_units
+    halves = {"lstm/kernel": 4 * units,
+              **{f"vae/rec/{i}/w": n for i, n in enumerate(
+                  train_cfg.vae_recognition_units)},
+              **{f"vae/gen/{i}/w": n for i, n in enumerate(
+                  train_cfg.vae_generative_units)}}
+    for r, out in enumerate(c):
+        for hoist, res in out.items():
+            for name, full in halves.items():
+                got, mom = res["shapes"][name]
+                if got[1] != full // 2 or mom != got:
+                    fail(f"(c) rank {r}: {name} held as {got}, moments "
+                         f"{mom}; expected {full // 2} columns")
+            moved_by(res["step_launches"], 1, f"(c) rank {r}'s step")
+            rel = loss_rel(res["loss"])
+            if not (rel <= SEED_LOSS_TOL and apart_ok(*res["apart"], lr, 1)
+                    and res["grad_err"] <= MODEL_GRAD_TOL
+                    and res["norm_err"] <= MODEL_GRAD_TOL):
+                fail(f"(c) rank {r} rnn_input_hoist={hoist}: loss rel {rel}, "
+                     f"params after the step apart {res['apart']}, "
+                     f"gradients {res['grad_err']} and their norm (rel) "
+                     f"{res['norm_err']} against the single card's halves "
+                     f"(tol {MODEL_GRAD_TOL})")
+    say("parallel", card_line, "(c) gloo, 4 ranks on the card, data 2 x "
+        "model 2: the LSTM gate kernel and the VAE hidden kernels ("
+        + ", ".join(halves) + ") and their moments held as column halves; "
+        "step 0 against the single-card step: "
+        + "; ".join(
+            f"rnn_input_hoist={h}: loss rel "
+            f"{max(loss_rel(o[h]['loss']) for o in c):.3g}"
+            f" (tol {SEED_LOSS_TOL}), params after the step apart by "
+            f"{max(o[h]['apart'][0] for o in c):.3g} (mean "
+            f"{max(o[h]['apart'][1] for o in c):.3g}; bound {2 * lr:.3g}), "
+            f"gradients {max(o[h]['grad_err'] for o in c):.3g} and their "
+            f"norm (rel) {max(o[h]['norm_err'] for o in c):.3g} against the "
+            f"single card's halves (tol {MODEL_GRAD_TOL}), gradients "
+            f"{max(o[h]['full_err'] for o in c):.3g} against its whole batch "
+            f"(its halves against its whole batch "
+            f"{c[0][h]['order_err']:.3g})" for h in (False, True))
+        + f"; each rank launching kernels 1-4 {train_cfg.max_steps} times a "
+        "step")
+    return {k: TRAIN_STEPS * v for k, v in want_step.items()}
+
+
+def check_parallel_trainer(card_line: str) -> None:
+    """Phase 11 (a), the driver: ``python -m air_tpu_torch.training
+    --data-parallel --n-devices 1 --device-data`` for
+    PARALLEL_TRAINER_STEPS steps, then again from its step-
+    PARALLEL_RESUME_AT checkpoint: the same losses from there and the same
+    final params, bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pool, labels = load_digit_pool()
+        data = os.path.join(tmp, "data")
+        generate_dataset(pool, labels, MultiMNISTConfig(
+            images_per_digit=TRAINER_PER_STRATUM, test_set_size=TRAINER_TEST,
+            seed=0), out_dir=data)
+        every = str(PARALLEL_RESUME_AT)
+        cmd = ["air_tpu_torch.training", "--data-parallel", "--n-devices",
+               "1", "--device-data", "--train-data",
+               os.path.join(data, "common.airrec"), "--test-data",
+               os.path.join(data, "test.airrec"), "--steps",
+               str(PARALLEL_TRAINER_STEPS), "--multi-step", "10",
+               "--eval-every", every, "--save-every", every, "--grad-every",
+               every, "--img-every", every, "--log-every", "1"]
+        runs = {}
+        for name in ("a", "b"):
+            folder = os.path.join(tmp, name)
+            if name == "b":
+                os.makedirs(os.path.join(folder, "models"))
+                for ext in (".npz", ".json"):
+                    shutil.copy(os.path.join(
+                        tmp, "a", "models",
+                        f"air-model-{PARALLEL_RESUME_AT}{ext}"),
+                        os.path.join(folder, "models"))
+            t = time.perf_counter()
+            log = run_tool([*cmd, "--results-folder", folder])
+            losses = {}
+            with open(os.path.join(folder, "summary", "metrics.jsonl")) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if "train/loss" in rec:
+                        losses[rec["step"]] = rec["train/loss"]
+            with np.load(os.path.join(
+                    folder, "models",
+                    f"air-model-{PARALLEL_TRAINER_STEPS}.npz")) as z:
+                params = digest([z[k] for k in sorted(z.files)
+                                 if k.startswith("params/")])
+            runs[name] = (losses, params, time.perf_counter() - t,
+                          log.strip().splitlines()[-1])
+    (a_losses, a_params, a_s, a_end), (b_losses, b_params, b_s, _) = (
+        runs["a"], runs["b"])
+    tail = range(PARALLEL_RESUME_AT + 1, PARALLEL_TRAINER_STEPS + 1)
+    if (sorted(a_losses) != list(range(1, PARALLEL_TRAINER_STEPS + 1))
+            or [b_losses.get(s) for s in tail] != [a_losses[s] for s in tail]
+            or a_params != b_params):
+        fail("(a) python -m air_tpu_torch.training --data-parallel: the "
+             f"run resumed from step {PARALLEL_RESUME_AT} does not repeat "
+             "the uninterrupted one (losses or params)")
+    say("parallel", card_line, f"(a) python -m air_tpu_torch.training "
+        f"--data-parallel --n-devices 1 --device-data: "
+        f"{PARALLEL_TRAINER_STEPS} steps in {a_s:.1f} s ({a_end}); resumed "
+        f"from step {PARALLEL_RESUME_AT} in {b_s:.1f} s: losses of steps "
+        f"{PARALLEL_RESUME_AT + 1}-{PARALLEL_TRAINER_STEPS} and the final "
+        f"params_sha256={a_params} bit-equal")
 
 
 def check_seeds(train_cfg, images, digits, card_line: str) -> tuple:
@@ -1634,8 +2055,7 @@ def main() -> None:
 
     # 2. build: one nvcc per source, all started together
     t_build = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        libs = dict(zip(LIBRARIES, pool.map(build.load, LIBRARIES)))
+    libs = build.load_all()
     for lib_name, lib in libs.items():
         report = " | ".join(
             line.strip() for line in lib.ptxas_report.splitlines()
@@ -1796,10 +2216,16 @@ def main() -> None:
         row["seeds_launches"] = seed_launches.get(row["name"], 0)
 
     # 10. the captured train step against the eager one
-    captured_launches = check_captured(train_cfg, state0, images, digits,
-                                       eager_runs, seeds_run, card_line)
+    captured_launches, single_ms = check_captured(
+        train_cfg, state0, images, digits, eager_runs, seeds_run, card_line)
     for row in rows:
         row["captured_launches"] = captured_launches.get(row["name"], 0)
+
+    # 11. multi-device training, its ranks on the one card
+    parallel_launches = check_parallel(train_cfg, images, digits, eager_runs,
+                                       single_ms, card_line)
+    for row in rows:
+        row["parallel_launches"] = parallel_launches.get(row["name"], 0)
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

@@ -25,6 +25,7 @@ import torch
 
 from air_tpu_torch.data.loader import DeviceDataPipeline
 from air_tpu_torch.models.config import AIRConfig
+from air_tpu_torch.parallel.mesh import make_mesh
 from air_tpu_torch.train import fast_pipeline, trainer
 from air_tpu_torch.train.fast_pipeline import (make_multi_step,
                                                make_parallel_multi_step)
@@ -295,8 +296,12 @@ def test_unported_options_raise():
     cfg = AIRConfig(**SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_multi_step(cfg, K, B, pipeline_unroll=2)
+    # the data-parallel step (tests/test_torch_parallel.py) keeps both
+    # refusals: the unroll, and a global batch the data axis does not divide
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_parallel_multi_step(cfg, K, B, mesh=None)
+        make_parallel_multi_step(cfg, K, B, make_mesh(2), pipeline_unroll=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_parallel_multi_step(cfg, K, B + 1, make_mesh(2))
     with pytest.raises(ValueError, match="bg_schedule"):
         make_multi_step(cfg, K, B, bg_image=np.zeros(400, np.float32))
     assert fast_pipeline.DeviceDataPipeline is DeviceDataPipeline

@@ -9,6 +9,7 @@ product and the 2500-pixel BCE sums are reduced in another order by each
 framework, and XLA fuses multiply-adds that PyTorch rounds twice.
 rec_num_digits must be exactly equal."""
 
+import importlib
 import os
 
 import jax
@@ -28,6 +29,7 @@ from air_tpu_torch.interop import params_from_jax
 from air_tpu_torch.models.air import air_forward, draw_noise
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
+from air_tpu_torch.ops.transformer import _linspace
 from air_tpu_torch.train.checkpoint import checkpoint_arch, load_params
 from air_tpu_torch.train.steps import make_eval_step
 
@@ -192,11 +194,42 @@ def test_config_copy_matches_jax():
 
 @pytest.mark.parametrize("override", [{"st_pad_mode": "clamp_cancel"}])
 def test_paths_of_later_slices_raise(override):
-    cfg = AIRConfig(**{**SMALL, **override})
-    images = torch.zeros((2, 400))
-    with pytest.raises(NotImplementedError):
-        air_forward({}, cfg, images, torch.zeros(2, dtype=torch.int32),
-                    noise=draw_noise(cfg, 2, device="cpu"))
+    """st_pad_mode="clamp_cancel" runs on st_impl="xla" (below); the
+    kernels build the zeros-pad hat only, so "inline" and "pallas" raise
+    ValueError, as the JAX package does."""
+    for st_impl in ("inline", "pallas"):
+        cfg = AIRConfig(**{**SMALL, **override, "st_impl": st_impl})
+        images = torch.zeros((2, 400))
+        with pytest.raises(ValueError, match="st_pad_mode"):
+            air_forward({}, cfg, images, torch.zeros(2, dtype=torch.int32),
+                        noise=draw_noise(cfg, 2, device="cpu"))
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("layout", ["scan", "stepparallel"])
+def test_clamp_cancel_forward_matches_jax(layout, train, monkeypatch):
+    """The clamped-corner transforms through the whole forward pass on
+    st_impl="xla" in both decoder layouts, JAX given the port's grid (a
+    grid point one ulp apart can move a clamped corner)."""
+    jtr = importlib.import_module("air_tpu.ops.transformer")
+    monkeypatch.setattr(jtr.jnp, "linspace", lambda start, stop, n:
+                        jnp.asarray(_linspace(n, "cpu").numpy()))
+    kw = {**SMALL, "st_impl": "xla", "st_pad_mode": "clamp_cancel",
+          "decoder_layout": layout}
+    jax_cfg = JaxConfig(**kw)
+    params = init_air_params(jax.random.PRNGKey(2), jax_cfg)
+    rng = np.random.default_rng(2)
+    images = rng.uniform(size=(6, 400)).astype(np.float32)
+    targets = np.array([0, 1, 2, 1, 0, 2], np.int32)
+    key = jax.random.PRNGKey(3)
+    want = jax_forward(params, jax_cfg, jnp.asarray(images),
+                       jnp.asarray(targets), key, train=train)
+    got = air_forward(
+        params_from_jax(jax.tree_util.tree_map(np.asarray, params), "cpu"),
+        AIRConfig(**kw), torch.from_numpy(images),
+        torch.from_numpy(targets), train=train,
+        noise=jax_noise(key, jax_cfg, 6))
+    assert_outputs_close(got, want)
 
 
 def test_generator_draws_are_reproducible():

@@ -27,6 +27,9 @@ PORT_MODULES = (
     "air_tpu_torch.models.air", "air_tpu_torch.models.config",
     "air_tpu_torch.nn.cnn", "air_tpu_torch.nn.layers", "air_tpu_torch.nn.lstm",
     "air_tpu_torch.nn.vae", "air_tpu_torch.ops.concrete",
+    "air_tpu_torch.parallel", "air_tpu_torch.parallel.collectives",
+    "air_tpu_torch.parallel.launch", "air_tpu_torch.parallel.mesh",
+    "air_tpu_torch.parallel.train_parallel",
     "air_tpu_torch.ops.gaussian", "air_tpu_torch.ops.schedules",
     "air_tpu_torch.ops.transformer", "air_tpu_torch.serve.model_wrapper",
     "air_tpu_torch.train.checkpoint", "air_tpu_torch.train.metrics",

@@ -193,6 +193,123 @@ def test_separable_transform_anisotropic(grid):
 
 
 def test_clamp_cancel_is_not_ported():
+    """Ported since: ``pad_mode="clamp_cancel"`` builds the JAX package's
+    one-hot weights from the clamped corners (on the port's grid), and an
+    unknown pad mode raises ValueError in both packages."""
     _, s, x, _ = _st_inputs(2, 20, 9)
-    with pytest.raises(NotImplementedError):
-        ttr._axis_weight_matrix(_t(s), _t(x), 8, 20, pad_mode="clamp_cancel")
+    with pytest.raises(ValueError, match="pad_mode"):
+        ttr._axis_weight_matrix(_t(s), _t(x), 8, 20, pad_mode="reflect")
+    with pytest.raises(ValueError, match="pad_mode"):
+        jtr._axis_weight_matrix(jnp.asarray(s), jnp.asarray(x), 8, 20,
+                                pad_mode="reflect")
+    got = ttr._axis_weight_matrix(_t(s), _t(x), 8, 20, pad_mode="clamp_cancel")
+    assert got.shape == (2, 8, 20)
+
+
+# --- clamp_cancel and the general transformer --------------------------------
+
+def _clamp_scalars(b, seed):
+    """Scales and shifts whose windows reach past the image on both sides,
+    so that the clamped corners and the one-pixel band are exercised."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.2, 1.5, b).astype(np.float32),
+            rng.uniform(-1.4, 1.4, b).astype(np.float32))
+
+
+@pytest.mark.parametrize("out_dim,in_dim", [(28, 50), (50, 28), (8, 20)])
+def test_clamp_cancel_weights_and_gradients_match_jax(out_dim, in_dim,
+                                                      monkeypatch):
+    """Values to 1e-5 and the gradients of a weighted sum of the weights
+    in (scale, shift) to 1e-4, JAX given the port's grid."""
+    monkeypatch.setattr(jtr.jnp, "linspace", lambda start, stop, n:
+                        jnp.asarray(ttr._linspace(n, "cpu").numpy()))
+    s, x = _clamp_scalars(16, out_dim + in_dim)
+    r = np.random.default_rng(1).normal(
+        size=(16, out_dim, in_dim)).astype(np.float32)
+
+    def jax_loss(s, x):
+        return jnp.sum(jnp.asarray(r) * jtr._axis_weight_matrix(
+            s, x, out_dim, in_dim, "clamp_cancel"))
+
+    want = jtr._axis_weight_matrix(jnp.asarray(s), jnp.asarray(x), out_dim,
+                                   in_dim, "clamp_cancel")
+    ts, tx = _t(s).requires_grad_(True), _t(x).requires_grad_(True)
+    got = ttr._axis_weight_matrix(ts, tx, out_dim, in_dim, "clamp_cancel")
+    _close(got.detach(), want, 1e-5)
+    assert float((got.detach().sum(-1) == 0).float().sum()) > 0  # off image
+    torch.sum(_t(r) * got).backward()
+    for g, w in zip((ts.grad, tx.grad),
+                    jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(s),
+                                                       jnp.asarray(x))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _thetas(b, seed):
+    """Affine thetas with rotation and shear (not axis-aligned)."""
+    rng = np.random.default_rng(seed)
+    theta = np.zeros((b, 2, 3), np.float32)
+    s = rng.uniform(0.2, 1.2, b)
+    theta[:, 0, 0], theta[:, 1, 1] = s, s * rng.uniform(0.8, 1.2, b)
+    theta[:, 0, 1] = rng.uniform(-0.3, 0.3, b)
+    theta[:, 1, 0] = rng.uniform(-0.3, 0.3, b)
+    theta[:, :, 2] = rng.uniform(-0.8, 0.8, (b, 2))
+    return theta
+
+
+@pytest.mark.parametrize("grid", ST_CASES, indirect=True)
+@pytest.mark.parametrize("hw,out,c", [((50, 50), (28, 28), 1),
+                                      ((20, 30), (12, 9), 3)])
+def test_transformer_matches_jax_and_the_oracle(hw, out, c, grid):
+    from tests.oracles import np_transformer
+    rng = np.random.default_rng(c)
+    images = rng.uniform(size=(4, *hw, c)).astype(np.float32)
+    theta = _thetas(4, c)
+    got = ttr.transformer(_t(images), _t(theta), out)
+    assert got.shape == (4, *out, c)
+    _close(got, jtr.transformer(jnp.asarray(images), jnp.asarray(theta),
+                                out), max(grid, 1e-5))
+    np.testing.assert_allclose(got.numpy(), np_transformer(images, theta, out),
+                               rtol=0, atol=1e-4)
+
+
+def test_transformer_gradients_match_jax(monkeypatch):
+    monkeypatch.setattr(jtr.jnp, "linspace", lambda start, stop, n:
+                        jnp.asarray(ttr._linspace(n, "cpu").numpy()))
+    rng = np.random.default_rng(3)
+    images = rng.uniform(size=(3, 20, 20, 2)).astype(np.float32)
+    theta = _thetas(3, 3)
+    r = rng.normal(size=(3, 12, 12, 2)).astype(np.float32)
+
+    def jax_loss(im, th):
+        return jnp.sum(jnp.asarray(r) * jtr.transformer(im, th, (12, 12)))
+
+    ti, tt = (_t(images).requires_grad_(True),
+              _t(theta).requires_grad_(True))
+    torch.sum(_t(r) * ttr.transformer(ti, tt, (12, 12))).backward()
+    for g, w in zip((ti.grad, tt.grad), jax.grad(jax_loss, argnums=(0, 1))(
+            jnp.asarray(images), jnp.asarray(theta))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_batch_transformer_shapes_and_values(monkeypatch):
+    """N thetas per image, image-major, each the transformer of its image;
+    [B, N, 6] and [B, N, 2, 3] thetas alike; JAX's values."""
+    monkeypatch.setattr(jtr.jnp, "linspace", lambda start, stop, n:
+                        jnp.asarray(ttr._linspace(n, "cpu").numpy()))
+    rng = np.random.default_rng(4)
+    images = rng.uniform(size=(2, 16, 16, 3)).astype(np.float32)
+    thetas = _thetas(6, 4).reshape(2, 3, 2, 3)
+    got = ttr.batch_transformer(_t(images), _t(thetas), (8, 10))
+    assert got.shape == (6, 8, 10, 3)
+    flat = ttr.batch_transformer(_t(images), _t(thetas.reshape(2, 3, 6)),
+                                 (8, 10))
+    assert torch.equal(got, flat)
+    for i in range(2):
+        for n in range(3):
+            one = ttr.transformer(_t(images[i:i + 1]),
+                                  _t(thetas[i, n][None]), (8, 10))
+            assert torch.equal(got[3 * i + n], one[0])
+    _close(got, jtr.batch_transformer(jnp.asarray(images),
+                                      jnp.asarray(thetas), (8, 10)), 1e-5)

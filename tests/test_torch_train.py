@@ -223,11 +223,12 @@ def _images(batch, cs, seed=0):
 
 
 def test_train_step_options_of_later_slices_raise():
-    """pmean_axis (the multi-GPU slice) raises, as does a bg_image without
-    its schedule; schedules_fn resolves the hyperparameters from the knobs
-    the step is given."""
+    """pmean_axis takes a parallel Mesh (a JAX axis name raises; the
+    data-parallel step is tests/test_torch_parallel.py's), a bg_image
+    without its schedule raises; schedules_fn resolves the hyperparameters
+    from the knobs the step is given."""
     cfg = AIRConfig(**SMALL)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         make_train_step(cfg, pmean_axis="data")
     with pytest.raises(ValueError):
         make_train_step(cfg, bg_image=np.zeros(400, np.float32))

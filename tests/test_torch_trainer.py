@@ -409,8 +409,11 @@ def test_checkpoint_sidecars_cross_packages(tmp_path):
 # --- the driver -------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--data-parallel"], ["--pipeline-unroll", "2"]], ids=lambda f: f[0])
+    ["--data-parallel", "--pipeline-unroll", "2"], ["--pipeline-unroll", "2"]],
+    ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
+    """--pipeline-unroll above 1 raises, with --data-parallel too (which
+    trains since it was ported: tests/test_torch_parallel.py)."""
     args = training.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         training.check_ported(args)
