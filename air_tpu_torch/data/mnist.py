@@ -16,6 +16,13 @@ The port's counterpart of ``air_tpu/data/mnist.py``:
   3. ``synthesize_mnist(n, seed)`` — a copy of the JAX package's renderer,
      which needs PIL and the DejaVu fonts; only
      ``scripts/make_torch_digit_pool.py`` calls it, to make the asset.
+  4. ``load_sklearn_digits(target_ink_size, interp)`` — the 1,797 real
+     handwritten 8x8 digits of the UCI Optical Recognition of Handwritten
+     Digits test set, as scikit-learn bundles them, upsampled into the
+     MNIST frame as the JAX package's ``load_sklearn_digits`` does, bit for
+     bit. They are read from the committed ``assets/uci_digits_8x8.npz``
+     (uint8 0-16 glyphs, labels, the sha256 of the decoded glyphs; made by
+     ``scripts/make_torch_uci_digits.py``), so no scikit-learn is needed.
 
 ``get_mnist`` takes real MNIST when it is on disk, else the committed pool.
 It never synthesizes, so it runs where PIL and the fonts are absent.
@@ -31,8 +38,10 @@ import struct
 import numpy as np
 
 IMAGE_SIZE = 28
-POOL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "assets", "synthetic_mnist_60000_seed0.npz")
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "assets")
+POOL = os.path.join(ASSETS, "synthetic_mnist_60000_seed0.npz")
+UCI_DIGITS = os.path.join(ASSETS, "uci_digits_8x8.npz")
 
 _FONT_PATHS = [
     "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
@@ -190,6 +199,97 @@ def synthesize_mnist(n: int = 60000, seed: int = 0, encoded: bool = False):
     if encoded:
         return images, labels, ks, us
     return images, labels
+
+
+def decode_uci(glyphs: np.ndarray) -> np.ndarray:
+    """uint8 glyphs 0-16 -> float32 in [0, 1], as the JAX package divides
+    scikit-learn's float64 values once cast to float32."""
+    return glyphs.astype(np.float32) / 16.0
+
+
+def load_uci_glyphs():
+    """The committed UCI digits: (glyphs [1797, 8, 8] float32 in [0, 1],
+    labels [1797] int32), checked against the sha256 stored in the
+    asset."""
+    with np.load(UCI_DIGITS) as z:
+        glyphs, labels = z["glyphs"], z["labels"]
+        want = str(z["sha256"])
+    src = decode_uci(glyphs)
+    if images_sha256(src) != want:
+        raise ValueError(f"{UCI_DIGITS}: decoded glyphs do not match their "
+                         f"recorded sha256 {want}")
+    return src, np.asarray(labels, np.int32)
+
+
+def _cubic_kernel(t: np.ndarray) -> np.ndarray:
+    """Catmull-Rom cubic convolution weights (a=-0.5, the standard
+    bicubic kernel) for |t| in [0, 2)."""
+    a = -0.5
+    t = np.abs(t)
+    w = np.where(
+        t <= 1.0,
+        (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
+        np.where(t < 2.0, a * t ** 3 - 5 * a * t ** 2 + 8 * a * t - 4 * a,
+                 0.0))
+    return w.astype(np.float32)
+
+
+def _upsample_weights(k: int, src: int, interp: str) -> np.ndarray:
+    """[k, src] separable upsampling matrix sampling source pixel centers
+    (edge-clamped). interp: 'bilinear' (hat) or 'bicubic' (Catmull-Rom,
+    rows renormalized where the clamp truncates the support)."""
+    coords = (np.arange(k, dtype=np.float32) + 0.5) * (src / k) - 0.5
+    coords = np.clip(coords, 0.0, src - 1.0)
+    idx = np.arange(src, dtype=np.float32)
+    t = coords[:, None] - idx[None, :]               # [k, src]
+    if interp == "bilinear":
+        w = np.maximum(0.0, 1.0 - np.abs(t)).astype(np.float32)
+    elif interp == "bicubic":
+        w = _cubic_kernel(t)
+    else:
+        raise ValueError(f"unknown interp {interp!r}")
+    return w / w.sum(axis=1, keepdims=True)
+
+
+def load_sklearn_digits(target_ink_size: int = 20,
+                        interp: str = "bilinear"):
+    """The 1797 real handwritten UCI digits (8x8, values 0-16, ~180 per
+    class), each upsampled to ``target_ink_size``² and pasted centered in
+    the MNIST 28x28 frame, as ``air_tpu/data/mnist.py``'s
+    ``load_sklearn_digits`` makes them from scikit-learn, bit for bit.
+
+    ``interp``: 'bilinear' (the default; the JAX package's round-4
+    datasets, whose operation order it keeps) or 'bicubic' (Catmull-Rom).
+
+    Returns (images [1797, 784] float32 in [0,1], labels [1797] int32).
+    """
+    src, labels = load_uci_glyphs()
+    n = len(src)
+    k = target_ink_size
+    if interp == "bilinear":
+        # bilinear 8x8 -> kxk sampled at pixel centers, rows then columns,
+        # in the JAX package's order of operations
+        coords = (np.arange(k, dtype=np.float32) + 0.5) * (8.0 / k) - 0.5
+        coords = np.clip(coords, 0.0, 7.0)
+        i0 = np.minimum(coords.astype(np.int32), 6)
+        frac = coords - i0
+        rows = (src[:, i0, :] * (1 - frac)[None, :, None]
+                + src[:, i0 + 1, :] * frac[None, :, None])
+        up = (rows[:, :, i0] * (1 - frac)[None, None, :]
+              + rows[:, :, i0 + 1] * frac[None, None, :])
+    else:
+        W = _upsample_weights(k, 8, interp)          # [k, 8]
+        up = np.einsum("ki,nij,lj->nkl", W, src, W)
+        # cubic lobes overshoot at hard edges; stay in [0, 1] pre-scale
+        up = np.clip(up, 0.0, 1.0)
+
+    pad = (IMAGE_SIZE - k) // 2
+    images = np.zeros((n, IMAGE_SIZE, IMAGE_SIZE), np.float32)
+    images[:, pad:pad + k, pad:pad + k] = up
+    # saturate stroke cores (synthesize_mnist's 1.4x clip): upsampling
+    # spreads the 8x8 antialiasing to a mean ink of ~0.54 against MNIST's
+    # ~0.78
+    return np.clip(images.reshape(n, -1) * 1.4, 0.0, 1.0), labels
 
 
 def get_mnist(data_dir: str = "mnist_data"):

@@ -3,9 +3,9 @@
 The port's own copy of ``air_tpu/data/multi_mnist.py``: every draw from
 the generator and every ``scipy.ndimage`` call in the same order, so the
 same digit pool and seed give the JAX package's canvases, metadata and
-positions bit for bit. ``read_image`` (a PNG ``bg_path``) imports PIL
-inside the function; where PIL is absent it raises ``ImportError`` and
-the procedural backgrounds (``bg_kind``) still work.
+positions bit for bit. ``read_image`` (a ``bg_path``) reads PNG only,
+through the port's own decoder (``data/png.py``), so the backgrounds need
+no PIL; the JAX package's reads any format PIL opens.
 
 Re-implements the reference generator (reference multi_mnist.py:82-183,
 299-414) with the same capabilities: for each digit count 0..max_digits,
@@ -33,6 +33,8 @@ import dataclasses
 
 import numpy as np
 
+from air_tpu_torch.data.png import read_png_grey
+
 try:
     import scipy.ndimage as nd
 except ImportError:  # pragma: no cover
@@ -41,9 +43,11 @@ except ImportError:  # pragma: no cover
 
 def read_image(path: str, max_intensity: float = 1.0) -> np.ndarray:
     """Load a grayscale background normalized to [0, max_intensity]
-    (reference multi_mnist.py:17-33)."""
-    from PIL import Image
-    image = np.asarray(Image.open(path).convert("L"), np.float32) / 255.0
+    (reference multi_mnist.py:17-33). The JAX package opens any format PIL
+    does; this reads PNG only, without PIL (``png.read_png_grey``: 8-bit,
+    non-interlaced, grey as PIL's ``convert("L")`` gives it), and raises
+    ``ValueError`` on anything else."""
+    image = read_png_grey(path).astype(np.float32) / 255.0
     img_min, img_max = image.min(), image.max()
     if img_min != img_max:
         if img_min > 0.0:

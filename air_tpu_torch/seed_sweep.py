@@ -10,8 +10,9 @@ plus ``--device`` (default ``cuda``; ``cpu`` for a tiny run without a
 card), ``--st-impl`` (default ``inline``: kernels 1-4 folded over the S*B
 images of every train step, 1-2 in every eval) and ``--synthetic-data N``
 (if ``--data`` holds no set, generate one first, N canvases per digit
-count, as ``python -m air_tpu_torch.training`` does). ``--pipeline-unroll``
-above 1 raises ``NotImplementedError``.
+count, as ``python -m air_tpu_torch.training`` does). ``--pipeline-unroll
+U`` is taken (an int >= 1) and tags the rows as the JAX script does; each
+step stays one replay of the captured step, with the bits of U = 1.
 
 The loop is the JAX script's: K-step chunks up to each eval, and a
 shorter chunk off the cadence, where the JAX script runs single steps;
@@ -82,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="AIRConfig.compute_dtype override")
     p.add_argument("--pipeline-unroll", type=int, default=1,
                    help="the JAX package's K-step scan unroll; the port "
-                        "takes 1 only")
+                        "takes any U >= 1 and replays one step at a time, "
+                        "with the bits of 1")
     p.add_argument("--decoder-layout", default=None,
                    choices=["scan", "stepparallel"],
                    help="AIRConfig.decoder_layout (stepparallel needs "
@@ -150,10 +152,6 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     if args.attempt_stride == 0:
         parser.error("--attempt-stride must be nonzero")
-    if args.pipeline_unroll != 1:
-        raise NotImplementedError(
-            "--pipeline-unroll > 1: a replayed CUDA graph has no "
-            "cross-step fusion knob (ROADMAP Queue 1)")
 
     import numpy as np
     import torch
@@ -194,7 +192,8 @@ def main(argv=None) -> dict:
     S = len(args.seeds)
     seeds = list(args.seeds)           # current data/param seed per replica
     state = create_multi_seed_state(cfg, seeds, device=device)
-    multi = make_multi_seed_step(cfg, K, B, knob_schedules=bool(args.rotate))
+    multi = make_multi_seed_step(cfg, K, B, knob_schedules=bool(args.rotate),
+                                 pipeline_unroll=args.pipeline_unroll)
     eval_fn = make_multi_seed_eval(cfg, knob_schedules=bool(args.rotate))
     knobs_S = None
     if args.rotate:

@@ -6,6 +6,11 @@ each step gathering its batch from the device-resident set through the
 epoch's permutation. Here one train step is captured as a CUDA graph on
 its first call (``StepGraph``) and replayed once per step, so the host
 launches one graph a step instead of the step's ~2,500 kernels.
+``pipeline_unroll`` (the JAX package's scan unroll, which changes XLA's
+fusion scope and so its numbers) is taken and checked, and every step
+stays one replay of the one-step graph, with the bits of U = 1: a graph
+of U steps ran no faster on the card, since the host fills a step's slots
+in less time than the card runs the step (PERF.md).
 
 A graph replays the addresses and the host scalars it was captured with,
 so what changes from step to step reaches it through static slots,
@@ -60,7 +65,8 @@ from air_tpu_torch.train.steps import (FORWARD_METRICS, TRAIN_METRICS,
 from air_tpu_torch.tree import tree_leaves, tree_unflatten
 
 __all__ = ["CapturedStep", "DeviceDataPipeline", "ParallelMultiStep",
-           "StepGraph", "make_multi_step", "make_parallel_multi_step"]
+           "StepGraph", "check_unroll", "make_multi_step",
+           "make_parallel_multi_step"]
 
 # the kernel modules whose LAUNCHES a replay adds to
 KERNEL_MODULES = (st_inline, st_fused, st_pallas)
@@ -153,6 +159,16 @@ class StepGraph:
                          for after, was in zip(captured, before)]
         _set_launches(before)
         self.graph = graph
+
+
+def check_unroll(pipeline_unroll) -> int:
+    """``pipeline_unroll`` as an int >= 1, else ``ValueError``."""
+    if (isinstance(pipeline_unroll, bool)
+            or int(pipeline_unroll) != pipeline_unroll
+            or pipeline_unroll < 1):
+        raise ValueError(f"pipeline_unroll must be an integer >= 1, got "
+                         f"{pipeline_unroll!r}")
+    return int(pipeline_unroll)
 
 
 class CapturedStep:
@@ -251,8 +267,9 @@ class MultiStep(CapturedStep):
     per step."""
 
     def __init__(self, config: AIRConfig, num_steps: int, batch_size: int,
-                 bg_image=None, bg_schedule=None):
+                 bg_image=None, bg_schedule=None, pipeline_unroll: int = 1):
         check_step_options(bg_image, bg_schedule)
+        check_unroll(pipeline_unroll)
         self.config, self.num_steps = config, num_steps
         self.batch_size = batch_size
         # the rows of each batch that this step trains on: all of them
@@ -350,7 +367,8 @@ class ParallelMultiStep(MultiStep):
     grad_graph = None
 
     def __init__(self, config: AIRConfig, num_steps: int, batch_size: int,
-                 mesh, bg_image=None, bg_schedule=None):
+                 mesh, bg_image=None, bg_schedule=None,
+                 pipeline_unroll: int = 1):
         if mesh.model != 1:
             raise ValueError(
                 f"make_parallel_multi_step is data-parallel only: a mesh of "
@@ -360,7 +378,7 @@ class ParallelMultiStep(MultiStep):
             raise ValueError(f"global batch {batch_size} not divisible by "
                              f"data axis size {mesh.data}")
         super().__init__(config, num_steps, batch_size, bg_image,
-                         bg_schedule)
+                         bg_schedule, pipeline_unroll)
         self.mesh = mesh
         # this rank's rows of each batch
         self.rows = batch_size // mesh.data
@@ -425,14 +443,10 @@ def make_multi_step(config: AIRConfig, num_steps: int, batch_size: int,
     overwrites: a caller that keeps a state across calls clones it. A
     state it did not return is copied in and left unchanged.
 
-    ``pipeline_unroll`` other than 1 raises: the JAX package's scan unroll
-    lets XLA fuse across optimizer steps, and a replayed CUDA graph has no
-    such knob."""
-    if pipeline_unroll != 1:
-        raise NotImplementedError(
-            "pipeline_unroll > 1: a replayed CUDA graph has no cross-step "
-            "fusion knob (ROADMAP Queue 1)")
-    return MultiStep(config, num_steps, batch_size, bg_image, bg_schedule)
+    ``pipeline_unroll`` must be an int >= 1 (else ``ValueError``); every
+    step is one replay whatever its value, with the bits of U = 1."""
+    return MultiStep(config, num_steps, batch_size, bg_image, bg_schedule,
+                     pipeline_unroll)
 
 
 def make_parallel_multi_step(config: AIRConfig, num_steps: int,
@@ -449,11 +463,8 @@ def make_parallel_multi_step(config: AIRConfig, num_steps: int,
     metrics are averaged over the data axis before the optimizer
     (``ParallelMultiStep``). A world of one gives ``make_multi_step``'s
     bits. ``ValueError`` if ``batch_size`` does not divide by the data
-    axis or the mesh has a model axis; ``pipeline_unroll`` other than 1
-    raises as for ``make_multi_step``."""
-    if pipeline_unroll != 1:
-        raise NotImplementedError(
-            "pipeline_unroll > 1: a replayed CUDA graph has no cross-step "
-            "fusion knob (ROADMAP Queue 1)")
+    axis, the mesh has a model axis or ``pipeline_unroll`` is not an int
+    >= 1; a step replays its two graphs around the eager all-reduce
+    whatever ``pipeline_unroll``."""
     return ParallelMultiStep(config, num_steps, batch_size, mesh, bg_image,
-                             bg_schedule)
+                             bg_schedule, pipeline_unroll)

@@ -48,7 +48,8 @@ from air_tpu_torch.models.air import (_numeric_flags, air_forward,
                                       draw_noise, noise_shapes)
 from air_tpu_torch.models.config import AIRConfig
 from air_tpu_torch.ops.schedules import resolve_annealed
-from air_tpu_torch.train.fast_pipeline import CapturedStep, copy_noise
+from air_tpu_torch.train.fast_pipeline import (CapturedStep, check_unroll,
+                                               copy_noise)
 from air_tpu_torch.train.state import (REPLICA_SCALARS, TrainState,
                                        apply_updates, create_train_state,
                                        global_norm_replicas, make_optimizer,
@@ -399,7 +400,8 @@ class MultiSeedStep(CapturedStep):
     step (``make_replica_body``), replayed once per step."""
 
     def __init__(self, config: AIRConfig, num_steps: int, batch_size: int,
-                 knob_schedules: bool):
+                 knob_schedules: bool, pipeline_unroll: int = 1):
+        check_unroll(pipeline_unroll)
         self.config, self.num_steps = config, num_steps
         self.batch_size, self.knob_schedules = batch_size, knob_schedules
         self.optimizer = make_optimizer(config)
@@ -461,21 +463,19 @@ def make_multi_seed_step(config: AIRConfig, num_steps: int, batch_size: int,
 
     The step is captured once as a CUDA graph and replayed once per step
     (``fast_pipeline.CapturedStep``); each replica's clock, knobs, Adam
-    scalars and draws reach it through static slots. The returned state
+    scalars and draws reach it through static slots. ``pipeline_unroll``
+    must be an int >= 1 (else ``ValueError``) and leaves the one-step
+    replays and their bits as ``make_multi_step`` does. The returned state
     aliases the step's buffers, which its next call overwrites: a caller
     that keeps a state across calls clones it. A state it did not return
     (a fresh one, ``reinit_replica``'s) is copied in and left unchanged.
 
     ``knob_schedules=True`` takes ``knobs_S`` (``stack_knobs``), each
-    replica's bootstrap-schedule variant. ``pipeline_unroll`` other than 1
-    (the JAX package's scan unroll) raises: a replayed CUDA graph has no
-    cross-step fusion knob. ``noise``, K dicts of stacked [S, ...] draws,
-    overrides the replicas' generators (the tests feed JAX's draws)."""
-    if pipeline_unroll != 1:
-        raise NotImplementedError(
-            "pipeline_unroll > 1: a replayed CUDA graph has no cross-step "
-            "fusion knob (ROADMAP Queue 1)")
-    return MultiSeedStep(config, num_steps, batch_size, knob_schedules)
+    replica's bootstrap-schedule variant. ``noise``, K dicts of stacked
+    [S, ...] draws, overrides the replicas' generators (the tests feed
+    JAX's draws)."""
+    return MultiSeedStep(config, num_steps, batch_size, knob_schedules,
+                         pipeline_unroll)
 
 
 def make_multi_seed_eval(config: AIRConfig, knob_schedules: bool = False):

@@ -53,7 +53,8 @@ from air_tpu_torch.train.checkpoint import (checkpoint_meta,
 from air_tpu_torch.train.evaluate import evaluate_params
 from air_tpu_torch.parallel.collectives import broadcast_object
 from air_tpu_torch.parallel.mesh import make_mesh, shard_batch
-from air_tpu_torch.train.fast_pipeline import (make_multi_step,
+from air_tpu_torch.train.fast_pipeline import (check_unroll,
+                                               make_multi_step,
                                                make_parallel_multi_step)
 from air_tpu_torch.train.metrics import (MetricsWriter, named_leaves,
                                          summarize_outputs, to_host,
@@ -140,8 +141,8 @@ class TrainerConfig:
     # per host iteration
     device_data: bool = False
     multi_step: int = 50
-    # the JAX package's scan unroll of its fused K-step dispatch; a replayed
-    # CUDA graph has no such knob (1 only)
+    # the JAX package's scan unroll of its fused K-step dispatch: an int
+    # >= 1; every step stays one replay, with the bits of 1
     pipeline_unroll: int = 1
     # data parallelism: one Trainer per rank of a process group
     # (air_tpu_torch.parallel.launch; python -m air_tpu_torch.training
@@ -294,10 +295,8 @@ class Trainer:
         """``train_data``: AIRREC path or (images, digits);
         ``test_data``: (images [N, canvas^2], digits [N]) numpy arrays."""
         tcfg = trainer_config
-        if tcfg.pipeline_unroll != 1:
-            raise NotImplementedError(
-                "pipeline_unroll > 1: a replayed CUDA graph has no "
-                "cross-step fusion knob (ROADMAP Queue 1)")
+        # before the results folder is made: the steps are built later
+        check_unroll(tcfg.pipeline_unroll)
         self.mesh = None
         if tcfg.data_parallel:
             if not dist.is_initialized():
@@ -428,12 +427,15 @@ class Trainer:
         bg_kw = {"bg_image": self.tcfg.bg_image,
                  "bg_schedule": self.tcfg.bg_schedule}
         k, b = self.tcfg.multi_step, self.tcfg.batch_size
+        unroll = self.tcfg.pipeline_unroll
         if self.mesh is None:
             self.multi_step = make_multi_step(self.train_config, k, b,
+                                              pipeline_unroll=unroll,
                                               **bg_kw)
         else:
             self.multi_step = make_parallel_multi_step(
-                self.train_config, k, b, self.mesh, **bg_kw)
+                self.train_config, k, b, self.mesh, pipeline_unroll=unroll,
+                **bg_kw)
         # the host loop's step: one replay on the batch it is given
         self.train_step = self.multi_step.step
         self.train_step_gs = make_train_step(self.train_config,

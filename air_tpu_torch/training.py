@@ -17,8 +17,9 @@ kernels) or ``xla`` (plain PyTorch products, no kernel; the only path of
 ``--n-devices`` cards (every visible one by default): one process per card,
 rank r on ``cuda:r``, over NCCL, the global batch split over the ranks;
 with ``--device cpu`` the ranks share the CPU over gloo. The kernels are
-built once before the ranks start. A flag whose path the port does not
-have (``--pipeline-unroll`` above 1) raises ``NotImplementedError``.
+built once before the ranks start. ``--pipeline-unroll U`` (an int >= 1,
+the JAX package's scan unroll) is taken in every loop; each step stays
+one replay of the captured step, with the bits of U = 1.
 """
 
 from __future__ import annotations
@@ -28,13 +29,6 @@ import os
 import sys
 
 import torch
-
-# flags whose path the port lacks, and the ROADMAP item that brings it
-UNPORTED = {
-    "--pipeline-unroll > 1": "Queue 1: a replayed CUDA graph has no "
-                             "cross-step fusion knob",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -63,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--multi-step", type=int, default=50)
     parser.add_argument("--pipeline-unroll", type=int, default=1,
                         help="the JAX package's K-step scan unroll; the "
-                             "port takes 1 only")
+                             "port takes any U >= 1 and replays one step "
+                             "at a time, with the bits of 1")
     parser.add_argument("--data-parallel", action="store_true",
                         help="one rank per card (cuda:r, NCCL), the batch "
                              "split over them; with --device cpu, ranks on "
@@ -136,7 +131,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bg-freeze", action="store_true")
     parser.add_argument("--bg-composite-kind", default="")
     parser.add_argument("--bg-composite-path", default="",
-                        help="a PNG texture; needs PIL")
+                        help="a PNG texture (8-bit, non-interlaced)")
     parser.add_argument("--bg-composite-seed", type=int, default=0)
     parser.add_argument("--bg-target", type=float, default=0.3)
     parser.add_argument("--bg-start", type=int, default=10000)
@@ -146,17 +141,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--scale-curriculum",
                         action=argparse.BooleanOptionalAction, default=None)
     return parser
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose path the port lacks."""
-    asked = {
-        "--pipeline-unroll > 1": args.pipeline_unroll != 1,
-    }
-    for flag, on in asked.items():
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not ported yet (ROADMAP {UNPORTED[flag]})")
 
 
 def synthesize(out_dir: str, per_stratum: int, max_digits: int = 2,
@@ -257,6 +241,7 @@ def configs(args):
         tensorboard=args.tensorboard,
         device_data=args.device_data,
         multi_step=args.multi_step,
+        pipeline_unroll=args.pipeline_unroll,
         data_parallel=args.data_parallel,
         n_devices=args.n_devices,
         reader_threads=args.reader_threads,
@@ -315,7 +300,6 @@ def train_rank(rank: int, device, args) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     if args.synthetic_data and not os.path.exists(args.train_data):
         generate_data(args)
     if not os.path.exists(args.train_data):

@@ -95,7 +95,9 @@ line with the card's name and power limit as nvidia-smi reports them:
               prints 20 JSON lines of headless_demo.stream's format, and
               ``python -m air_tpu_torch.embeddings`` over a test set
               generated from the digit pool writes the projector files and
-              a sprite PNG that decodes. Then each serving path's kernels
+              a sprite PNG that decodes (both entry points called in this
+              process, as the sweep's, the generator's and the eval
+              CLI's are). Then each serving path's kernels
               per infer (torch.profiler) and its latency (median of 10, 1
               and 64 canvases), beside the inline scan path's.
   9. seeds    seed-parallel training (air_tpu_torch.train.multi_seed) of
@@ -134,10 +136,16 @@ line with the card's name and power limit as nvidia-smi reports them:
               torch.profiler names kernels 1-4 max_steps times per
               replayed step; SEEDS_STEPS eager seed-parallel steps
               bit-equal to phase 9's captured run. Then ms/step (CUDA
-              events), images/s, kernels and copies and device busy share
-              per step (torch.profiler) and the first call (with the
+              events, 10 steps), images/s and the first call (with the
               capture), captured and eager, for the single-seed step and
-              the seed-parallel step at S = 1, 4, 10 and 16.
+              the seed-parallel step at S = 1, 4, 10 and 16, each beside
+              one torch.profiler window of 3 steps: kernels and copies per
+              step, the time one of them runs (the union of their
+              intervals) over the event-timed step (the busy share, whose
+              rest is the device's idle) and over the window's span (which
+              the profiler's own overhead lengthens, so that share reads
+              low), and their durations summed (which counts twice the
+              time cuDNN's concurrent kernels overlap).
  11. parallel multi-device training (air_tpu_torch.parallel) at the robust
               default's full width on phase 5's batch, its ranks spawned
               by air_tpu_torch.parallel.launch on the one card. (a) NCCL,
@@ -168,7 +176,28 @@ line with the card's name and power limit as nvidia-smi reports them:
               columns) and their norm against the single card's halves
               (MODEL_GRAD_TOL), printed beside the single card's own
               halves-to-whole spread. Gloo on one card checks
-              the algorithm; it is no speed figure.
+              the algorithm; it is no speed figure, so (b)'s and (c)'s
+              ranks run at once.
+ 12. unrolled (a) the train step at pipeline_unroll U
+              (make_multi_step(pipeline_unroll=U), st_impl="inline", phase
+              5's batch; every step one replay of the one-step graph) for
+              U in UNROLLS: TRAIN_STEPS steps from create_train_state
+              (seed 0), a first call of U steps (the capture) and one of
+              the rest, give phase 10's losses and params digest,
+              launching kernels 1-4 max_steps times a step; ms/step from
+              CUDA events over a call of UNROLL_TIMED steps, the first
+              call and the memory it reserves; the same for the
+              seed-parallel step at S = 4, U = SEED_UNROLL, against phase
+              9's digest. (b) the real-handwriting path, with scikit-learn
+              and PIL unimportable: ``python -m
+              air_tpu_torch.generate_multi_mnist --source sklearn
+              --digit-slice :1400`` with a PNG background
+              (images/harder_ref_textures.png), the trainer's device-data
+              loop on it with ``--pipeline-unroll 4`` as phase 7 runs it
+              (launches, the progress rule, a resume bit for bit), then
+              ``python -m air_tpu_torch.eval_checkpoint`` on its checkpoint
+              and on the shipped CNN checkpoint over the fixture (>= 0.9),
+              each launching kernels 1-2 max_steps times.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -179,23 +208,27 @@ a temporary directory that is removed.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
+import importlib
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
-import struct
 import tempfile
 import time
-import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from air_tpu_torch import training
+from air_tpu_torch import eval_checkpoint, generate_multi_mnist, training
 from air_tpu_torch.data import (MultiMNISTConfig, generate_dataset,
                                 load_digit_pool, load_test_data)
+from air_tpu_torch.data.png import read_png_grey
+from air_tpu_torch.data.records import write_records
 from air_tpu_torch.kernels import build, st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
@@ -312,6 +345,14 @@ INLINE_SYMBOLS = {"inline_attention_read": "st_read_kernel",
                   "inline_attention_read_bwd": "st_read_bwd_kernel",
                   "inline_write_accumulate_bwd": "st_write_bwd_kernel"}
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
+# phase 12: pipeline_unroll and the real-handwriting path
+UNROLLS = (1, 2, 4, 10, 50)
+UNROLL_TIMED = 100           # steps of the timed call
+SEED_UNROLL = 4
+REAL_PER_STRATUM = 200
+REAL_TEST = 100
+REAL_SLICE = ":1400"         # the UCI digits the real set draws from
+REAL_BG = os.path.join(REPO, "images", "harder_ref_textures.png")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -784,7 +825,6 @@ def trainer_run(argv: list, log_path: str) -> tuple:
     """A Trainer configured by ``python -m air_tpu_torch.training``'s flags,
     trained with its stdout in ``log_path``. Returns (trainer, result)."""
     args = training.build_parser().parse_args(["--device", DEVICE, *argv])
-    training.check_ported(args)
     model_config, trainer_config = training.configs(args)
     test = load_test_data(args.test_data, shift_zero_digits_images=True)
     with open(log_path, "a") as log, contextlib.redirect_stdout(log):
@@ -820,6 +860,103 @@ def expect_trainer_launches(trainer, what: str) -> dict:
     return want
 
 
+def trainer_and_resume(phase: str, data: str, extra: list, tmp: str,
+                       log: str, card_line: str) -> dict:
+    """The trainer's device-data loop on the set in ``data``, as ``python
+    -m air_tpu_torch.training`` configures it with ``extra`` flags:
+    TRAINER_STEPS steps, TRAINER_K per host iteration, evals, checkpoints
+    and gradient summaries every TRAINER_EVERY steps (the main run, held
+    to its launches, the progress rule, finite evals, its files), then a
+    run resumed from its step-TRAINER_RESUME_AT checkpoint, held to its
+    losses and params bit for bit. Returns the main run's launches."""
+    common = ["--train-data", os.path.join(data, "common.airrec"),
+              "--test-data", os.path.join(data, "test.airrec"),
+              "--log-every", "1"]
+    device_loop = [*common, "--device-data",
+                   "--multi-step", str(TRAINER_K),
+                   "--eval-every", str(TRAINER_EVERY),
+                   "--save-every", str(TRAINER_EVERY),
+                   "--grad-every", str(TRAINER_EVERY),
+                   "--img-every", str(TRAINER_STEPS), *extra]
+    flags = " ".join(extra)
+    with_flags = f", {flags}" if flags else ""
+    run_a = os.path.join(tmp, phase + "_a")
+    reset_launches()
+    trainer, result = trainer_run(
+        [*device_loop, "--results-folder", run_a,
+         "--steps", str(TRAINER_STEPS)], log)
+    main_launches = expect_trainer_launches(trainer, "the device-data loop")
+    train = records(trainer, "train/")
+    losses = [train[s]["train/loss"] for s in range(1, TRAINER_STEPS + 1)]
+    first = float(np.mean(losses[:TRAINER_MEAN_OF]))
+    last = float(np.mean(losses[-TRAINER_MEAN_OF:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        fail(f"trainer {flags}: mean loss of the last {TRAINER_MEAN_OF} "
+             f"steps {last} not below that of the first {TRAINER_MEAN_OF} "
+             f"{first}, or a loss is not finite")
+    evals = {s: r["test/accuracy"]
+             for s, r in records(trainer, "test/").items()}
+    if (sorted(evals) != list(range(0, TRAINER_STEPS + 1, TRAINER_EVERY))
+            or not np.all(np.isfinite(list(evals.values())))):
+        fail(f"trainer {flags}: eval accuracies {evals}")
+    saved = [f"air-model-{s}.npz" for s in evals]
+    missing = [f for f in saved if not os.path.exists(
+        os.path.join(trainer.models_dir, f))]
+    png = os.path.join(trainer.summary_dir,
+                       f"reconstruction_{TRAINER_STEPS}.png")
+    if missing or not os.path.exists(png):
+        fail(f"trainer {flags}: missing checkpoints {missing} or {png}")
+    params_a = digest(tree_leaves(trainer.state.params))
+    say(phase, card_line, f"device-data loop (K={TRAINER_K}{with_flags}) "
+        f"{TRAINER_STEPS} steps: launches={main_launches} for "
+        f"{dict(trainer.calls)} forward passes; loss mean of first "
+        f"{TRAINER_MEAN_OF} {first:.3f}, last {TRAINER_MEAN_OF} "
+        f"{last:.3f}; eval accuracy "
+        + " ".join(f"@{s}={a:.4f}" for s, a in evals.items())
+        + f"; checkpoints {saved}, metrics.jsonl and a PNG written; "
+        f"params_sha256={params_a}")
+    say(phase, card_line, f"device-data loop (captured step{with_flags}): "
+        f"{result['ms_per_step']:.3f} ms/step in the train steps, "
+        f"{BATCH / result['ms_per_step'] * 1e3:.1f} images/s; "
+        f"{result['steady_ms_per_step']:.3f} ms/step after the first "
+        f"chunk, which took {result['first_call_ms']:.1f} ms with the "
+        f"capture (StepTimer); {result['images_per_sec']:.1f} images/s "
+        f"over the whole run, events included")
+
+    # resume from the step-TRAINER_RESUME_AT checkpoint of the main run
+    run_b = os.path.join(tmp, phase + "_b")
+    os.makedirs(os.path.join(run_b, "models"))
+    for ext in (".npz", ".json"):
+        shutil.copy(os.path.join(trainer.models_dir,
+                                 f"air-model-{TRAINER_RESUME_AT}{ext}"),
+                    os.path.join(run_b, "models"))
+    resumed, _ = trainer_run(
+        [*device_loop, "--results-folder", run_b,
+         "--steps", str(TRAINER_STEPS)], log)
+    again = records(resumed, "train/")
+    tail = range(TRAINER_RESUME_AT + 1, TRAINER_STEPS + 1)
+    params_b = digest(tree_leaves(resumed.state.params))
+    if (resumed.folder != run_b
+            or [again.get(s, {}).get("train/loss") for s in tail]
+            != [train[s]["train/loss"] for s in tail]
+            or params_b != params_a):
+        fail(f"trainer {flags}: resuming from step {TRAINER_RESUME_AT} "
+             "does not repeat the uninterrupted run (losses or params)")
+    say(phase, card_line, f"resumed from the step-{TRAINER_RESUME_AT} "
+        f"checkpoint: loss at step {TRAINER_RESUME_AT + 1} "
+        f"{again[TRAINER_RESUME_AT + 1]['train/loss']!r} and every loss to "
+        f"step {TRAINER_STEPS} bit-equal to the uninterrupted run; "
+        f"params_sha256={params_b}")
+    return main_launches, trainer
+
+
+def show_log(path: str) -> None:
+    """The end of a trainer's log on stderr, if it was written."""
+    if os.path.exists(path):
+        with open(path) as f:
+            sys.stderr.write(f.read()[-6000:])
+
+
 def check_trainer(card_line: str) -> dict:
     """Phase 7. Returns the inline kernels' launches in the trainer's main
     run (the device-data loop)."""
@@ -834,96 +971,16 @@ def check_trainer(card_line: str) -> dict:
             f"canvases ({TRAINER_TEST} held out) from the committed pool of "
             f"{len(pool)} digits in {time.perf_counter() - t:.1f} s")
         log = os.path.join(tmp, "trainer.log")
-        common = ["--train-data", os.path.join(data, "common.airrec"),
-                  "--test-data", os.path.join(data, "test.airrec"),
-                  "--log-every", "1"]
-        device_loop = [*common, "--device-data",
-                       "--multi-step", str(TRAINER_K),
-                       "--eval-every", str(TRAINER_EVERY),
-                       "--save-every", str(TRAINER_EVERY),
-                       "--grad-every", str(TRAINER_EVERY),
-                       "--img-every", str(TRAINER_STEPS)]
         try:
-            # the trainer's main run
-            run_a = os.path.join(tmp, "a")
-            reset_launches()
-            trainer, result = trainer_run(
-                [*device_loop, "--results-folder", run_a,
-                 "--steps", str(TRAINER_STEPS)], log)
-            main_launches = expect_trainer_launches(
-                trainer, "the device-data loop")
-            train = records(trainer, "train/")
-            losses = [train[s]["train/loss"]
-                      for s in range(1, TRAINER_STEPS + 1)]
-            first = float(np.mean(losses[:TRAINER_MEAN_OF]))
-            last = float(np.mean(losses[-TRAINER_MEAN_OF:]))
-            if not (np.all(np.isfinite(losses)) and last < first):
-                fail(f"trainer: mean loss of the last {TRAINER_MEAN_OF} "
-                     f"steps {last} not below that of the first "
-                     f"{TRAINER_MEAN_OF} {first}, or a loss is not finite")
-            evals = {s: r["test/accuracy"]
-                     for s, r in records(trainer, "test/").items()}
-            if (sorted(evals) != list(range(0, TRAINER_STEPS + 1,
-                                            TRAINER_EVERY))
-                    or not np.all(np.isfinite(list(evals.values())))):
-                fail(f"trainer: eval accuracies {evals}")
-            saved = [f"air-model-{s}.npz" for s in evals]
-            missing = [f for f in saved if not os.path.exists(
-                os.path.join(trainer.models_dir, f))]
-            png = os.path.join(trainer.summary_dir,
-                               f"reconstruction_{TRAINER_STEPS}.png")
-            if missing or not os.path.exists(png):
-                fail(f"trainer: missing checkpoints {missing} or {png}")
-            params_a = digest(tree_leaves(trainer.state.params))
-            say("trainer", card_line, f"device-data loop (K={TRAINER_K}) "
-                f"{TRAINER_STEPS} steps: launches={main_launches} for "
-                f"{dict(trainer.calls)} forward passes; loss mean of first "
-                f"{TRAINER_MEAN_OF} {first:.3f}, last {TRAINER_MEAN_OF} "
-                f"{last:.3f}; eval accuracy "
-                + " ".join(f"@{s}={a:.4f}" for s, a in evals.items())
-                + f"; checkpoints {saved}, metrics.jsonl and a PNG written; "
-                f"params_sha256={params_a}")
-            say("trainer", card_line, f"device-data loop (captured step): "
-                f"{result['ms_per_step']:.3f} ms/step in the train steps, "
-                f"{BATCH / result['ms_per_step'] * 1e3:.1f} images/s; "
-                f"{result['steady_ms_per_step']:.3f} ms/step after the "
-                f"first chunk, which took {result['first_call_ms']:.1f} ms "
-                f"with the capture (StepTimer); "
-                f"{result['images_per_sec']:.1f} images/s over the whole "
-                f"run, events included")
-
-            # resume from the step-200 checkpoint of the main run
-            run_b = os.path.join(tmp, "b")
-            os.makedirs(os.path.join(run_b, "models"))
-            for ext in (".npz", ".json"):
-                shutil.copy(os.path.join(
-                    trainer.models_dir,
-                    f"air-model-{TRAINER_RESUME_AT}{ext}"),
-                    os.path.join(run_b, "models"))
-            resumed, _ = trainer_run(
-                [*device_loop, "--results-folder", run_b,
-                 "--steps", str(TRAINER_STEPS)], log)
-            again = records(resumed, "train/")
-            tail = range(TRAINER_RESUME_AT + 1, TRAINER_STEPS + 1)
-            params_b = digest(tree_leaves(resumed.state.params))
-            if (resumed.folder != run_b
-                    or [again.get(s, {}).get("train/loss") for s in tail]
-                    != [train[s]["train/loss"] for s in tail]
-                    or params_b != params_a):
-                fail(f"trainer: resuming from step {TRAINER_RESUME_AT} "
-                     "does not repeat the uninterrupted run (losses or "
-                     "params)")
-            say("trainer", card_line, f"resumed from the step-"
-                f"{TRAINER_RESUME_AT} checkpoint: loss at step "
-                f"{TRAINER_RESUME_AT + 1} "
-                f"{again[TRAINER_RESUME_AT + 1]['train/loss']!r} and every "
-                f"loss to step {TRAINER_STEPS} bit-equal to the "
-                f"uninterrupted run; params_sha256={params_b}")
-
+            main_launches, _ = trainer_and_resume("trainer", data, [], tmp,
+                                                  log, card_line)
             # the host loop
             reset_launches()
             host, result = trainer_run(
-                [*common, "--results-folder", os.path.join(tmp, "c"),
+                ["--train-data", os.path.join(data, "common.airrec"),
+                 "--test-data", os.path.join(data, "test.airrec"),
+                 "--log-every", "1",
+                 "--results-folder", os.path.join(tmp, "c"),
                  "--steps", str(TRAINER_HOST_STEPS), "--eval-every", "10",
                  "--save-every", "10", "--grad-every", "10",
                  "--img-every", "10"], log)
@@ -944,39 +1001,9 @@ def check_trainer(card_line: str) -> dict:
                 f"first, which took {result['first_call_ms']:.1f} ms with "
                 f"the capture")
         except BaseException:
-            with open(log) as f:
-                sys.stderr.write(f.read()[-6000:])
+            show_log(log)
             raise
     return main_launches
-
-
-def decode_png(path: str) -> np.ndarray:
-    """The pixels of an 8-bit grey or RGB PNG with unfiltered rows, the
-    chunks' CRCs checked; raises ValueError on anything else."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, header = 8, b"", None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"{path}: bad CRC in {kind!r}")
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBB", body[:10])
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    width, height, depth, color = header
-    channels = {0: 1, 2: 3}.get(color)
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, -1)
-    if (depth != 8 or channels is None or rows.shape[1] != width * channels + 1
-            or np.any(rows[:, 0])):
-        raise ValueError(f"{path}: unsupported PNG layout")
-    pixels = rows[:, 1:].reshape(height, width, channels)
-    return pixels[..., 0] if channels == 1 else pixels
 
 
 def infer_latency(wrapper, canvases, n: int, runs: int = 10) -> float:
@@ -992,29 +1019,64 @@ def infer_latency(wrapper, canvases, n: int, runs: int = 10) -> float:
     return float(np.median(times))
 
 
-def kernels_per_call(fn, calls: int = 3) -> tuple[float, float]:
-    """(kernels and copies, their device ms) the card runs per call of
-    ``fn`` (after one call to warm up), from torch.profiler's device
-    rows."""
+def profiled_window(fn, calls: int = 3) -> dict:
+    """What the card runs per call of ``fn`` (after one call to warm up),
+    from one torch.profiler window of the card's activity over ``calls``
+    calls: ``kernels``, its kernels and copies; ``busy_ms``, the time at
+    least one of them runs (the union of their intervals); ``window_ms``,
+    the span from the first one's start to the last one's end;
+    ``summed_ms``, their durations summed, which counts twice the time two
+    of them overlap (cuDNN runs some of its kernels on streams of its own,
+    inside a graph too). ``busy_ms <= window_ms`` by construction."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    return (sum(e.count for e in rows) / calls,
-            sum(e.self_device_time_total for e in rows) / calls / 1e3)
+    spans = device_spans(prof)
+    if not spans:
+        fail("torch.profiler recorded no kernel on the card")
+    busy, end = 0, spans[0][0]
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"kernels": len(spans) / calls,
+            "busy_ms": busy / calls / 1e6,
+            "window_ms": (end - spans[0][0]) / calls / 1e6,
+            "summed_ms": sum(b - a for a, b, _ in spans) / calls / 1e6}
+
+
+def device_spans(prof) -> list:
+    """(start ns, end ns, name) of each kernel and copy a profile recorded
+    on the card, by start (its ranges' device-side rows left out), from
+    the profiler's raw events."""
+    return sorted((e.start_ns(), e.end_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation())
+
+
+def busy_line(t: dict) -> str:
+    """``profiled_window``'s counts per step beside the event-timed
+    ``ms``, as phase 10 prints them: the busy share is busy_ms / ms (its
+    rest the device's idle); the share of the profiled span, which the
+    profiler's own overhead lengthens, stands beside it."""
+    return (f"{t['kernels']:.0f} kernels and copies per step; "
+            f"torch.profiler: {t['busy_ms']:.3f} ms busy a step, "
+            f"{t['busy_ms'] / t['ms']:.1%} of the event-timed step (busy "
+            f"share); in the profiled span of {t['window_ms']:.3f} ms a "
+            f"step, lengthened by the profiler, "
+            f"{t['busy_ms'] / t['window_ms']:.1%}; kernel durations summed "
+            f"{t['summed_ms']:.3f} ms")
 
 
 def kernels_per_infer(wrapper, canvases, n: int, calls: int = 3) -> float:
     """Kernels and copies the card runs per infer call of n canvases."""
     req = canvases[np.arange(n) % len(canvases)]
-    return kernels_per_call(lambda: wrapper.infer(req), calls)[0]
+    return profiled_window(lambda: wrapper.infer(req), calls)["kernels"]
 
 
 def check_default_serving(canvases, truth, card_line: str) -> dict:
@@ -1143,11 +1205,26 @@ def run_tool(args: list, timeout: int = 300) -> str:
     return proc.stdout
 
 
+def run_cli(args: list) -> str:
+    """stdout of ``python -m <args>``'s entry point, ``main(argv)``, called
+    in this process (which has paid the interpreter's, torch's and the
+    card's start once); an exception or exit in it fails the smoke run."""
+    module = importlib.import_module(args[0])
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            module.main(args[1:])
+    except SystemExit as e:
+        sys.stderr.write(out.getvalue()[-4000:])
+        fail(f"python -m {' '.join(args)} exited {e.code}")
+    return out.getvalue()
+
+
 def check_tools(card_line: str) -> None:
     """Phase 8, the tools: the headless demo and the embeddings export,
-    each as a user runs it."""
+    through their entry points in this process."""
     t = time.perf_counter()
-    out = run_tool(["air_tpu_torch.demo", "--headless", str(HEADLESS_FRAMES),
+    out = run_cli(["air_tpu_torch.demo", "--headless", str(HEADLESS_FRAMES),
                     "--model-path", CKPT])
     recs = [json.loads(line) for line in out.splitlines()]
     keys = {"frame", "digits", "boxes", "nll", "latency_ms"}
@@ -1161,7 +1238,7 @@ def check_tools(card_line: str) -> None:
         f"{HEADLESS_FRAMES}: {len(recs)} JSON lines, digits "
         f"{[r['digits'] for r in recs]}, median latency "
         f"{float(np.median([r['latency_ms'] for r in recs])):.3f} ms/frame, "
-        f"{time.perf_counter() - t:.1f} s with the process's start")
+        f"{time.perf_counter() - t:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -1170,7 +1247,7 @@ def check_tools(card_line: str) -> None:
             images_per_digit=40, test_set_size=60, seed=11),
             out_dir=os.path.join(tmp, "data"))
         folder = os.path.join(tmp, "embeddings")
-        out = run_tool(["air_tpu_torch.embeddings", "--model-path", CKPT,
+        out = run_cli(["air_tpu_torch.embeddings", "--model-path", CKPT,
                         "--test-data", os.path.join(tmp, "data",
                                                     "test.airrec"),
                         "--results-folder", folder])
@@ -1179,7 +1256,7 @@ def check_tools(card_line: str) -> None:
                 "mnist_sprites.png", "projector_config.pbtxt"]
         if files != want:
             fail(f"embeddings: wrote {files}, not {want}")
-        sprite = decode_png(os.path.join(folder, "mnist_sprites.png"))
+        sprite = read_png_grey(os.path.join(folder, "mnist_sprites.png"))
         vectors = np.loadtxt(os.path.join(folder, "air_mnist_tensors.tsv"),
                              delimiter="\t", ndmin=2)
         side = int(np.ceil(np.sqrt(len(vectors)))) * WS
@@ -1276,9 +1353,9 @@ def step_times(config, n_rep: int, images, digits, captured: bool,
     at S = n_rep, the single-seed step at n_rep = 0; captured (one CUDA
     graph replayed per step) or eager. ``ms``: per step from CUDA events
     over ``runs`` steps; ``first_ms``: the first call (host clock, ending
-    in a synchronize: with the capture when captured); ``kernels`` and
-    ``busy_ms``: kernels and copies and their device ms per step
-    (torch.profiler)."""
+    in a synchronize: with the capture when captured); and
+    ``profiled_window``'s counts per step over 3 steps: ``kernels``,
+    ``busy_ms``, ``window_ms``, ``summed_ms``."""
     if n_rep:
         states = [create_multi_seed_state(config, range(n_rep),
                                           device=DEVICE)]
@@ -1313,10 +1390,9 @@ def step_times(config, n_rep: int, images, digits, captured: bool,
         step()
     end.record()
     torch.cuda.synchronize()
-    kernels, busy = kernels_per_call(step)
     return {"ms": start.elapsed_time(end) / runs,
             "first_ms": timer.summary()["first_step_ms"],
-            "kernels": kernels, "busy_ms": busy}
+            **profiled_window(step)}
 
 
 def st_kernels_per_step(fn, calls: int = 3) -> dict:
@@ -1325,18 +1401,13 @@ def st_kernels_per_step(fn, calls: int = 3) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    counts = {name: 0 for name in INLINE_SYMBOLS}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name, symbol in INLINE_SYMBOLS.items():
-                if symbol + "<" in e.key:
-                    counts[name] += e.count
-    return {k: v / calls for k, v in counts.items()}
+    names = [name for _, _, name in device_spans(prof)]
+    return {k: sum(symbol + "<" in n for n in names) / calls
+            for k, symbol in INLINE_SYMBOLS.items()}
 
 
 def captured_run(config, state0, images, digits, steps: int) -> tuple:
@@ -1478,11 +1549,199 @@ def check_captured(train_cfg, state0, images, digits, eager_runs: dict,
                 + f" ({'captured' if captured else 'eager'}, inline, batch "
                 f"{BATCH} per replica): {t['ms']:.3f} ms/step (CUDA events, "
                 f"10 steps), {s_eff * BATCH / t['ms'] * 1e3:.1f} images/s; "
-                f"{t['kernels']:.0f} kernels and copies per step, "
-                f"{t['busy_ms']:.3f} ms of device time (torch.profiler, 3 "
-                f"steps; {t['busy_ms'] / t['ms']:.1%} of the step); first "
-                f"call {t['first_ms']:.1f} ms")
+                + busy_line(t) + f"; first call {t['first_ms']:.1f} ms")
     return captured_launches, single_ms
+
+
+def reserved_by(fn) -> tuple:
+    """(fn's result, ms of the call on the host clock ending in a
+    synchronize, MiB of memory_reserved it added): the memory a first
+    call's capture takes, the allocator emptied first."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t) * 1e3,
+            (torch.cuda.memory_reserved() - before) / 2 ** 20)
+
+
+def unrolled_times(call) -> dict:
+    """ms/step of ``call(k)`` (k steps) over a call of UNROLL_TIMED steps
+    (CUDA events), and the host's ms/step until the call returns."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    call(UNROLL_TIMED)
+    host = (time.perf_counter() - t) * 1e3 / UNROLL_TIMED
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / UNROLL_TIMED, "host_ms": host}
+
+
+def check_unrolled(train_cfg, state0, images, digits, eager_run: tuple,
+                   seeds_run: tuple, card_line: str) -> dict:
+    """Phase 12 (a). Returns the launches of the 60 steps at each U."""
+    config = train_cfg.replace(st_impl="inline")
+    perm = torch.arange(BATCH, device=DEVICE)
+    per_step = want_kernels("inline", config.max_steps)
+    main_launches = {k: 0 for k in per_step}
+    for u in UNROLLS:
+        multi = make_multi_step(config, TRAIN_STEPS, BATCH,
+                                pipeline_unroll=u)
+        reset_launches()
+        (state, m1), first_ms, pool_mib = reserved_by(
+            lambda: multi(state0, images, digits, perm, 0, num_steps=u))
+        state, m2 = multi(state, images, digits, perm, u,
+                          num_steps=TRAIN_STEPS - u)
+        torch.cuda.synchronize()
+        expect_launches({k: 0 for k in launches()},
+                        {k: TRAIN_STEPS * v for k, v in per_step.items()},
+                        f"{TRAIN_STEPS} steps at pipeline_unroll={u}")
+        for k in main_launches:
+            main_launches[k] += TRAIN_STEPS * per_step[k]
+        got = (torch.cat([m1["loss"], m2["loss"]]).tolist(),
+               digest(tree_leaves(state.params)))
+        if got != eager_run:
+            fail(f"pipeline_unroll={u}: {TRAIN_STEPS} steps part from "
+                 f"phase 10's (params {got[1]} vs {eager_run[1]})")
+        holder = [state]
+
+        def call(k):
+            holder[0] = multi(holder[0], images, digits, perm, 0,
+                              num_steps=k)[0]
+
+        t = unrolled_times(call)
+        say("unrolled", card_line, f"pipeline_unroll={u} single-seed "
+            f"(inline, batch {BATCH}): {TRAIN_STEPS} steps, losses and "
+            f"params_sha256={got[1]} bit-equal to phase 10's; "
+            f"{t['ms']:.3f} ms/step (CUDA events, a call of {UNROLL_TIMED} "
+            f"steps; the host returns after {t['host_ms']:.3f} ms/step), "
+            f"{BATCH / t['ms'] * 1e3:.1f} images/s; first call ({u} steps, "
+            f"the capture) {first_ms:.1f} ms, memory reserved by it "
+            f"{pool_mib:+.1f} MiB")
+        del multi, holder, state, call
+
+    # the seed-parallel step at S = len(SEEDS), U = SEED_UNROLL, on phase
+    # 9's replicas and perms
+    u = SEED_UNROLL
+    multi = make_multi_seed_step(config, SEEDS_STEPS, BATCH,
+                                 pipeline_unroll=u)
+    perms = multi_seed_perms(BATCH, SEEDS, 0, device=DEVICE)
+    state_s = create_multi_seed_state(config, SEEDS, device=DEVICE)
+    (state, m1), first_ms, pool_mib = reserved_by(
+        lambda: multi(state_s, images, digits, perms, 0, num_steps=u))
+    state, m2 = multi(state, images, digits, perms, u,
+                      num_steps=SEEDS_STEPS - u)
+    losses = torch.cat([m1["loss"], m2["loss"]]).cpu().numpy()
+    got = digest(tree_leaves(state.params))
+    if not (np.array_equal(losses.view(np.int32),
+                           seeds_run[0].view(np.int32))
+            and got == seeds_run[1]):
+        fail(f"S={len(SEEDS)} pipeline_unroll={u}: {SEEDS_STEPS} steps part "
+             f"from phase 9's (params {got} vs {seeds_run[1]})")
+    holder = [state]
+
+    def call(k):
+        holder[0] = multi(holder[0], images, digits, perms, 0,
+                          num_steps=k)[0]
+
+    t = unrolled_times(call)
+    n_img = len(SEEDS) * BATCH
+    say("unrolled", card_line, f"pipeline_unroll={u} seed-parallel "
+        f"S={len(SEEDS)}: {SEEDS_STEPS} steps, losses and params_sha256="
+        f"{got} bit-equal to phase 9's; {t['ms']:.3f} ms/step (CUDA events, "
+        f"a call of {UNROLL_TIMED} steps; the host returns after "
+        f"{t['host_ms']:.3f} ms/step), {n_img / t['ms'] * 1e3:.1f} images/s; "
+        f"first call ({u} steps, the capture) {first_ms:.1f} ms, memory "
+        f"reserved by it {pool_mib:+.1f} MiB")
+    return main_launches
+
+
+@contextlib.contextmanager
+def unimportable(*names: str):
+    """Inside, an import of any of ``names`` fails, as on a machine
+    without them."""
+    saved = {name: sys.modules.get(name) for name in names}
+    sys.modules.update(dict.fromkeys(names))
+    try:
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = module
+
+
+def eval_cli(argv: list) -> dict:
+    """``python -m air_tpu_torch.eval_checkpoint``'s entry point on the
+    card, in this process (its launches counted); its JSON result."""
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        result = eval_checkpoint.main([*argv, "--device", DEVICE])
+    torch.cuda.synchronize()
+    return result
+
+
+def check_real_handwriting(card_line: str) -> dict:
+    """Phase 12 (b). Returns the launches of the trainer's main run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "real")
+        t = time.perf_counter()
+        out = io.StringIO()
+        with unimportable("sklearn", "PIL"), contextlib.redirect_stdout(out):
+            generate_multi_mnist.main([
+                "--source", "sklearn", "--digit-slice", REAL_SLICE,
+                "--images-per-digit", str(REAL_PER_STRATUM),
+                "--test-set-size", str(REAL_TEST), "--bg-path", REAL_BG,
+                "--out-folder", data])
+        say("real", card_line, "python -m air_tpu_torch.generate_multi_mnist "
+            f"--source sklearn --digit-slice {REAL_SLICE} --images-per-digit "
+            f"{REAL_PER_STRATUM} --test-set-size {REAL_TEST} --bg-path "
+            f"{os.path.relpath(REAL_BG, REPO)} (scikit-learn and PIL "
+            f"unimportable) in {time.perf_counter() - t:.1f} s: "
+            + "; ".join(out.getvalue().strip().splitlines()[-3:]))
+        log = os.path.join(tmp, "real.log")
+        try:
+            main_launches, trainer = trainer_and_resume(
+                "real", data, ["--pipeline-unroll", str(SEED_UNROLL)], tmp,
+                log, card_line)
+        except BaseException:
+            show_log(log)
+            raise
+
+        # the eval CLI: the trained checkpoint on the held-out set, the
+        # shipped one on the fixture
+        fixture = os.path.join(tmp, "fixture", "test.airrec")
+        with np.load(FIXTURE) as z:
+            write_records(fixture, z["canvases"], z["digits"])
+        fwd = PATHS["inline"][0]
+        results = []
+        for model, test in ((trainer.models_dir,
+                             os.path.join(data, "test.airrec")),
+                            (CKPT, fixture)):
+            reset_launches()
+            result = eval_cli(["--model-path", model, "--test-data", test])
+            expect_launches({k: 0 for k in launches()},
+                            {k: trainer.config.max_steps for k in fwd},
+                            f"eval_checkpoint of {os.path.basename(model)}")
+            results.append(result)
+        if not results[1]["accuracy"] >= MIN_ACCURACY:
+            fail(f"eval_checkpoint: the shipped checkpoint scores "
+                 f"{results[1]['accuracy']} on the fixture, below "
+                 f"{MIN_ACCURACY}")
+        for what, r in zip(("the trained checkpoint on its held-out set",
+                            "the shipped checkpoint on the fixture"),
+                           results):
+            say("real", card_line, f"python -m air_tpu_torch.eval_checkpoint "
+                f"({what}, kernels 1-2 {trainer.config.max_steps} times "
+                f"each): " + json.dumps({k: v for k, v in r.items()
+                                         if k != "checkpoint"}))
+    return main_launches
 
 
 def grad_errors(got, want, placements=None, model_rank=0) -> float:
@@ -1695,9 +1954,14 @@ def check_parallel(train_cfg, images, digits, eager_runs: dict,
         + f"; phase 10's single-seed captured step {single_ms:.3f}")
     check_parallel_trainer(card_line)
 
-    # (b) gloo, two ranks on the card, data axis 2
-    b = launch(rank_gloo_data, "gloo", [card_0] * 2, (train_cfg, *host),
-               timeout=RANK_SECONDS)
+    # (b) gloo, two ranks on the card, data axis 2, and (c) gloo, four
+    # ranks, data 2 x model 2: both check the algorithm and time nothing,
+    # so their ranks run at once
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(launch, fn, "gloo", [card_0] * n,
+                            (train_cfg, *host), timeout=RANK_SECONDS)
+                for fn, n in ((rank_gloo_data, 2), (rank_gloo_model, 4))]
+        b, c = (run.result() for run in runs)
     lr = train_cfg.learning_rate
     for r, out in enumerate(b):
         moved_by(out["step_launches"], 1, f"(b) rank {r}'s step 0")
@@ -1736,9 +2000,6 @@ def check_parallel(train_cfg, images, digits, eager_runs: dict,
         f"{b[0]['params']} (a correctness check: two processes on one card "
         "time nothing)")
 
-    # (c) gloo, four ranks on the card, data 2 x model 2
-    c = launch(rank_gloo_model, "gloo", [card_0] * 4, (train_cfg, *host),
-               timeout=RANK_SECONDS)
     units = train_cfg.rnn_units
     halves = {"lstm/kernel": 4 * units,
               **{f"vae/rec/{i}/w": n for i, n in enumerate(
@@ -2011,11 +2272,12 @@ def check_seeds(train_cfg, images, digits, card_line: str) -> tuple:
 
 
 def check_sweep(data: str, tmp: str, card_line: str) -> None:
-    """``python -m air_tpu_torch.seed_sweep`` as a user runs it: SEEDS
-    on the generated set, SWEEP_ITERS steps, evals every SWEEP_EVERY."""
+    """``python -m air_tpu_torch.seed_sweep``'s entry point in this
+    process: SEEDS on the generated set, SWEEP_ITERS steps, evals every
+    SWEEP_EVERY."""
     out = os.path.join(tmp, "sweep")
     t = time.perf_counter()
-    stdout = run_tool(["air_tpu_torch.seed_sweep",
+    stdout = run_cli(["air_tpu_torch.seed_sweep",
                        *map(str, SEEDS), "--cnn", "--data", data,
                        "--out", out, "--max-iters", str(SWEEP_ITERS),
                        "--eval-every", str(SWEEP_EVERY),
@@ -2040,7 +2302,7 @@ def check_sweep(data: str, tmp: str, card_line: str) -> None:
     say("seeds", card_line, f"python -m air_tpu_torch.seed_sweep "
         f"{' '.join(map(str, SEEDS))} --cnn: {SWEEP_ITERS} steps, evals "
         + "; ".join(evals) + f"; results.jsonl rows {final}; "
-        f"{seconds:.1f} s with the process's start")
+        f"{seconds:.1f} s")
 
 
 def main() -> None:
@@ -2226,6 +2488,15 @@ def main() -> None:
                                        single_ms, card_line)
     for row in rows:
         row["parallel_launches"] = parallel_launches.get(row["name"], 0)
+
+    # 12. pipeline_unroll, and the real-handwriting path
+    unrolled_launches = check_unrolled(train_cfg, state0, images, digits,
+                                       eager_runs["inline"], seeds_run,
+                                       card_line)
+    real_launches = check_real_handwriting(card_line)
+    for row in rows:
+        row["unrolled_launches"] = unrolled_launches.get(row["name"], 0)
+        row["real_launches"] = real_launches.get(row["name"], 0)
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

@@ -58,6 +58,7 @@ except ImportError:
                  st_impl="inline")
 
 N, B, K = 24, 4, 3
+K_U = 3          # steps of the unrolled run: JAX's scan has a remainder
 ANNEALED = {"z_pres_prior_log_odds": {"init": 100.0, "min": 1e-3,
                                       "factor": 0.5, "iters": 3,
                                       "log": True}}
@@ -143,6 +144,48 @@ def test_make_multi_step_matches_jax():
                     tree_leaves(params_from_jax(to_np(jnew.params), "cpu"))):
         torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)
     assert new.step == int(jnew.step) == K
+
+
+@pytest.mark.skipif(jax is None, reason="needs JAX")
+@pytest.mark.parametrize("unroll", [2])
+def test_unrolled_multi_step_matches_jax(unroll):
+    """K_U = 3 steps at pipeline_unroll U (JAX's scan: a remainder of one
+    step) from batch 1, from JAX's state with JAX's draws, against
+    JAX's unrolled scan: losses to 1e-4 relative, params to 1e-5; and
+    bit-equal to the port's U = 1."""
+    kw = {**SMALL, **MAIN_OPT, "annealing_schedules": ANNEALED}
+    jcfg, cfg = JaxConfig(**kw), AIRConfig(**kw)
+    jstate = jax_create(jcfg, rng=3)
+    images, digits = _data(4, N, cfg.canvas_size)
+    perm = np.random.default_rng(5).permutation(N)
+    jnew, jm = jax_make_multi_step(jcfg, K_U, B, donate=False,
+                                   pipeline_unroll=unroll)(
+        jstate, jnp.asarray(images.numpy()), jnp.asarray(digits.numpy()),
+        jnp.asarray(perm, jnp.int32), jnp.asarray(1, jnp.int32))
+
+    params = params_from_jax(to_np(jstate.params), "cpu")
+    state = create_train_state(cfg, params=params, device="cpu")
+    state = state.replace(opt_state=opt_state_from_jax(
+        to_np(jax.tree_util.tree_leaves(jstate.opt_state)), params, "cpu"))
+    noise = [jax_noise(jax.random.fold_in(jstate.key, i), jcfg, B)
+             for i in range(K_U)]
+    runs = {}
+    for u in (1, unroll):
+        new, m = make_multi_step(cfg, K_U, B, pipeline_unroll=u)(
+            state, images, digits, torch.from_numpy(perm), 1, noise=noise)
+        runs[u] = (clone_state(new), m)
+    new, m = runs[unroll]
+    assert_same_state(new, runs[1][0])
+    assert_same_metrics(m, runs[1][1])
+    for name in ("loss", "reconstruction_loss", "kl_loss", "accuracy",
+                 "z_pres_prior_log_odds"):
+        assert tuple(m[name].shape) == (K_U,)
+        np.testing.assert_allclose(m[name].numpy(), np.asarray(jm[name]),
+                                   rtol=1e-4, err_msg=name)
+    for a, b in zip(tree_leaves(new.params),
+                    tree_leaves(params_from_jax(to_np(jnew.params), "cpu"))):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)
+    assert new.step == int(jnew.step) == K_U
 
 
 # -------------------- against the eager step -------------------------------
@@ -293,13 +336,21 @@ def test_step_bodies_take_tensors_only():
 
 
 def test_unported_options_raise():
+    """An unroll below 1 (or not an integer) raises, in both steps; U = 2
+    runs; a global batch the data axis does not divide raises."""
     cfg = AIRConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_multi_step(cfg, K, B, pipeline_unroll=2)
-    # the data-parallel step (tests/test_torch_parallel.py) keeps both
-    # refusals: the unroll, and a global batch the data axis does not divide
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_parallel_multi_step(cfg, K, B, make_mesh(2), pipeline_unroll=2)
+    for bad in (0, -1, 1.5, True):
+        with pytest.raises(ValueError, match="pipeline_unroll"):
+            make_multi_step(cfg, K, B, pipeline_unroll=bad)
+        with pytest.raises(ValueError, match="pipeline_unroll"):
+            make_parallel_multi_step(cfg, K, B, make_mesh(2),
+                                     pipeline_unroll=bad)
+    images, digits = _data(1, N, cfg.canvas_size)
+    state = create_train_state(cfg, seed=0, device="cpu")
+    new, m = make_multi_step(cfg, K, B, pipeline_unroll=2)(
+        state, images, digits, torch.arange(N), 0)
+    assert new.step == K and tuple(m["loss"].shape) == (K,)
+    make_parallel_multi_step(cfg, K, B, make_mesh(2), pipeline_unroll=2)
     with pytest.raises(ValueError, match="not divisible"):
         make_parallel_multi_step(cfg, K, B + 1, make_mesh(2))
     with pytest.raises(ValueError, match="bg_schedule"):
@@ -312,7 +363,7 @@ class EagerMultiStep:
     """The captured step's interface over eager train steps."""
 
     def __init__(self, config, num_steps, batch_size, bg_image=None,
-                 bg_schedule=None):
+                 bg_schedule=None, pipeline_unroll=1):
         self.num_steps, self.batch_size = num_steps, batch_size
         self.eager = make_train_step(config, bg_image=bg_image,
                                      bg_schedule=bg_schedule)
@@ -427,3 +478,33 @@ def test_captured_step_on_the_card():
     want, wm = eager_steps(cfg, state0, images, digits, perm, 0, K)
     assert_same_metrics(m, wm)
     assert_same_state(state, want)
+
+
+@pytest.mark.gpu
+def test_unrolled_graph_on_the_card():
+    """On the card: calls of 7 and 2 steps at pipeline_unroll 3 give the
+    bits of U = 1, and each call adds max_steps launches of kernels 1-4 a
+    step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from air_tpu_torch.kernels import st_inline
+    cfg = AIRConfig(**SMALL)
+    images, digits = (t.cuda() for t in _data(1, N, cfg.canvas_size))
+    perm = torch.arange(N, device="cuda")
+    state0 = create_train_state(cfg, seed=0, device="cuda")
+    runs = {}
+    for u in (1, 3):
+        multi = make_multi_step(cfg, 9, B, pipeline_unroll=u)
+        metrics = []
+        state = state0
+        for start, k in ((0, 7), (7, 2)):
+            st_inline.reset_launches()
+            state, m = multi(state, images, digits, perm, start, num_steps=k)
+            torch.cuda.synchronize()
+            assert set(st_inline.LAUNCHES.values()) == {k * cfg.max_steps}
+            metrics.append({name: v.clone() for name, v in m.items()})
+        runs[u] = (clone_state(state), {name: torch.cat(
+            [m[name] for m in metrics]) for name in metrics[0]})
+    assert_same_state(runs[3][0], runs[1][0])
+    assert_same_metrics(runs[3][1], runs[1][1])
+

@@ -128,6 +128,31 @@ def test_multi_seed_step_matches_jax(st_impl, knobbed):
     """K = 2 steps of 2 replicas from JAX's stacked state, perms and draws;
     with knobs, each replica on its own rotation variant at its own
     clock."""
+    check_against_jax(st_impl, knobbed, K)
+
+
+@pytest.mark.parametrize("unroll", [2])
+def test_unrolled_multi_seed_step_matches_jax(unroll):
+    """3 steps at pipeline_unroll U (U = 2 leaves JAX's scan a remainder of
+    one) against JAX's unrolled step, as above, and bit-equal to the port's
+    U = 1."""
+    new, m = check_against_jax("inline", False, 3, unroll)
+    want, wm = check_against_jax("inline", False, 3, 1, check=False)
+    for a, b in zip(tree_leaves((new.params, new.opt_state.mu,
+                                 new.opt_state.nu)),
+                    tree_leaves((want.params, want.opt_state.mu,
+                                 want.opt_state.nu))):
+        assert torch.equal(a, b)
+    for k in wm:
+        assert torch.equal(m[k], wm[k]), k
+
+
+def check_against_jax(st_impl: str, knobbed: bool, k: int, unroll: int = 1,
+                      check: bool = True):
+    """k steps of JAX's make_multi_seed_step and the port's at
+    ``pipeline_unroll``, from the same stacked state, perms and draws;
+    with ``check``, the port held to JAX's. Returns the port's (state,
+    metrics)."""
     jcfg = JAX_SMALL                     # st_impl "xla"
     if knobbed:   # the z_pres prior schedule the knobs rebuild
         jcfg = jcfg.replace(annealing_schedules={"z_pres_prior_log_odds": {
@@ -143,12 +168,14 @@ def test_multi_seed_step_matches_jax(st_impl, knobbed):
     if knobbed:   # replica 1 restarted: its clock ahead of replica 0's
         jstate = jstate.replace(step=jnp.asarray([0, 4], jnp.int32))
     jperms = jax_ms.multi_seed_perms(N, SEEDS, 0)
-    jmulti = jax_ms.make_multi_seed_step(jcfg, K, B, donate=False,
-                                         knob_schedules=knobbed)
-    extra = (jax_ms.stack_knobs(KNOBS),) if knobbed else ()
-    jnew, jm = jmulti(jstate, jnp.asarray(images.numpy()),
-                      jnp.asarray(digits.numpy()), jperms,
-                      jnp.asarray(0, jnp.int32), *extra)
+    if check:
+        jmulti = jax_ms.make_multi_seed_step(jcfg, k, B, donate=False,
+                                             knob_schedules=knobbed,
+                                             pipeline_unroll=unroll)
+        extra = (jax_ms.stack_knobs(KNOBS),) if knobbed else ()
+        jnew, jm = jmulti(jstate, jnp.asarray(images.numpy()),
+                          jnp.asarray(digits.numpy()), jperms,
+                          jnp.asarray(0, jnp.int32), *extra)
 
     singles = []
     for r in range(len(SEEDS)):
@@ -162,22 +189,26 @@ def test_multi_seed_step_matches_jax(st_impl, knobbed):
                                   step=int(jstate.step[r])))
     state = stack_train_states(singles)
     steps0 = np.asarray(jstate.step)
-    noise = [{k: torch.stack([
+    noise = [{name: torch.stack([
         jax_noise(jax.random.fold_in(jstate.key[r], int(steps0[r]) + i),
-                  jcfg, B)[k] for r in range(len(SEEDS))])
-        for k in ("scale", "shift", "vae_latent", "vae_out", "z_pres_u")}
-        for i in range(K)]
-    multi = make_multi_seed_step(cfg, K, B, knob_schedules=knobbed)
+                  jcfg, B)[name] for r in range(len(SEEDS))])
+        for name in ("scale", "shift", "vae_latent", "vae_out", "z_pres_u")}
+        for i in range(k)]
+    multi = make_multi_seed_step(cfg, k, B, knob_schedules=knobbed,
+                                 pipeline_unroll=unroll)
     knobs = (stack_knobs(KNOBS),) if knobbed else ()
     new, m = multi(state, images, digits,
                    torch.from_numpy(np.asarray(jperms, np.int64)), 0,
                    *knobs, noise=noise)
-    for k in ("loss", "reconstruction_loss", "kl_loss", "grad_norm",
-              "z_pres_prior_log_odds", "accuracy"):
-        assert tuple(m[k].shape) == (K, len(SEEDS)), k
-        if k != "grad_norm":
-            np.testing.assert_allclose(m[k].numpy(), np.asarray(jm[k]),
-                                       err_msg=k, **TOL)
+    if not check:
+        return new, m
+    for name in ("loss", "reconstruction_loss", "kl_loss", "grad_norm",
+                 "z_pres_prior_log_odds", "accuracy"):
+        assert tuple(m[name].shape) == (k, len(SEEDS)), name
+        if name != "grad_norm":
+            np.testing.assert_allclose(m[name].numpy(),
+                                       np.asarray(jm[name]), err_msg=name,
+                                       **TOL)
     # this config's gradient is ill-conditioned: its norm is dominated by
     # the BCE's -x / (r + 1e-9) at pixels whose reconstruction r is near 0,
     # where rounding is large relative to r. From the same params the norms
@@ -187,8 +218,9 @@ def test_multi_seed_step_matches_jax(st_impl, knobbed):
     np.testing.assert_allclose(m["grad_norm"].numpy()[0],
                                np.asarray(jm["grad_norm"])[0], rtol=1e-3)
     params_close(new.params, params_from_jax(to_np(jnew.params), "cpu"),
-                 cfg.learning_rate, K, bf16=False)
+                 cfg.learning_rate, k, bf16=False)
     assert new.step.tolist() == np.asarray(jnew.step).tolist()
+    return new, m
 
 
 def test_knob_schedules_resolve_as_jax():
@@ -424,11 +456,14 @@ def test_reinit_replica_only_touches_target():
 
 def test_multi_seed_step_arguments():
     cfg = AIRConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_multi_seed_step(cfg, K, B, pipeline_unroll=2)
+    with pytest.raises(ValueError, match="pipeline_unroll"):
+        make_multi_seed_step(cfg, K, B, pipeline_unroll=0)
     state = create_multi_seed_state(cfg, SEEDS, device="cpu")
     images, digits = _data(1, N, cfg.canvas_size)
     perms = multi_seed_perms(N, SEEDS, 0, device="cpu")
+    new, m = make_multi_seed_step(cfg, K, B, pipeline_unroll=2)(
+        state, images, digits, perms, 0)
+    assert new.step.tolist() == [K, K] and m["loss"].shape == (K, 2)
     with pytest.raises(ValueError, match="knob_schedules"):
         make_multi_seed_step(cfg, 1, B, knob_schedules=True)(
             state, images, digits, perms, 0)
@@ -612,14 +647,22 @@ def test_seed_sweep_cli_writes_the_jax_scripts_rows(sweep_data, tmp_path):
         "[eval @ 0", "[eval @ 4", "[eval @ 7"]
 
 
-def test_seed_sweep_stall_reseeds_only_that_replica(sweep_data, tmp_path,
+@pytest.fixture(scope="module")
+def base_sweep(sweep_data, tmp_path_factory):
+    """(argv, result) of a sweep of seeds 0 and 1 that may restart from
+    step 1 (none stalls)."""
+    argv = ["0", "1", "--data", sweep_data, *SWEEP_FLAGS,
+            "--stall-restart", "1", "--post-restart-iters", "0"]
+    out = tmp_path_factory.mktemp("base_sweep")
+    return argv, seed_sweep.main([*argv, "--out", str(out)])
+
+
+def test_seed_sweep_stall_reseeds_only_that_replica(base_sweep, tmp_path,
                                                    monkeypatch):
     """A stall forced on replica 1 at the step-4 eval re-seeds it
     (attempt_seed, the next rotation variant, a fresh clock); replica 0
     trains on bit-equal to a sweep without the stall."""
-    argv = ["0", "1", "--data", sweep_data, *SWEEP_FLAGS,
-            "--stall-restart", "1", "--post-restart-iters", "0"]
-    base = seed_sweep.main([*argv, "--out", str(tmp_path / "a")])
+    argv, base = base_sweep
 
     from air_tpu_torch.train import trainer
     calls = []
@@ -639,6 +682,21 @@ def test_seed_sweep_stall_reseeds_only_that_replica(sweep_data, tmp_path,
                     tree_leaves(base["state"].params)):
         assert torch.equal(a[0], b[0])
         assert not torch.equal(a[1], b[1])
+
+
+def test_seed_sweep_unrolled_is_the_rolled_sweep(base_sweep, tmp_path):
+    """--pipeline-unroll 2 tags its rows _pu2 and trains the replicas to
+    the bits of --pipeline-unroll 1."""
+    argv, base = base_sweep
+    got = seed_sweep.main([*argv, "--pipeline-unroll", "2",
+                           "--out", str(tmp_path / "b")])
+    assert all(r["tag"] == "vmap_hold15000_cnn_rot_pu2" for r in got["rows"])
+    assert [r["test_accuracy"] for r in got["rows"]] == [
+        r["test_accuracy"] for r in base["rows"]]
+    assert got["state"].step.tolist() == [7, 7]
+    for a, b in zip(tree_leaves(got["state"].params),
+                    tree_leaves(base["state"].params)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -20,6 +20,8 @@ PORT_MODULES = (
     "air_tpu_torch.interop", "air_tpu_torch.tree", "air_tpu_torch.training",
     "air_tpu_torch.data.backgrounds", "air_tpu_torch.data.loader",
     "air_tpu_torch.data.mnist", "air_tpu_torch.data.multi_mnist",
+    "air_tpu_torch.data.png", "air_tpu_torch.generate_multi_mnist",
+    "air_tpu_torch.eval_checkpoint",
     "air_tpu_torch.data.records", "air_tpu_torch.runtime.native",
     "air_tpu_torch.utils.tb_writer",
     "air_tpu_torch.kernels.build", "air_tpu_torch.kernels.st_fused",
@@ -55,7 +57,7 @@ assert not missing, missing
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 for script in ("profile_torch_serve.py", "profile_torch_train.py",
                "determinism_torch_train.py", "sweep_st_geometry.py",
-               "capture_check_torch.py"):
+               "capture_check_torch.py", "make_torch_uci_digits.py"):
     runpy.run_path("scripts/" + script, run_name="profile")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "air_tpu")
           and sys.modules[m] is not None]

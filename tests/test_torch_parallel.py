@@ -41,6 +41,8 @@ from air_tpu.parallel.mesh import replicated
 from air_tpu.parallel.train_parallel import make_parallel_train_step as \
     jax_parallel_step
 from air_tpu.parallel.train_parallel import shard_batch as jax_shard_batch
+from air_tpu.train.fast_pipeline import make_multi_step as \
+    jax_make_multi_step
 from air_tpu.train.state import create_train_state as jax_create
 from air_tpu.train.steps import make_train_step as jax_make_train_step
 from air_tpu_torch import training
@@ -54,7 +56,7 @@ from air_tpu_torch.parallel.mesh import (Mesh, leaf_sharding, make_mesh,
 from air_tpu_torch.parallel.train_parallel import make_parallel_train_step
 from air_tpu_torch.train.fast_pipeline import make_parallel_multi_step
 from air_tpu_torch.train.state import create_train_state
-from air_tpu_torch.tree import path_name, tree_leaves_with_path
+from air_tpu_torch.tree import path_name, tree_leaves, tree_leaves_with_path
 from tests import torch_parallel_ranks as ranks
 from tests.test_torch_model import SMALL, jax_noise
 from tests.test_torch_train import MAIN_OPT, to_np
@@ -149,8 +151,8 @@ def test_batch_must_divide_by_the_data_axis():
         make_parallel_multi_step(cfg, ranks.K, 5, mesh)
     with pytest.raises(ValueError, match="not divisible"):
         shard_batch(mesh, np.zeros((5, 400), np.float32), np.zeros(5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_parallel_multi_step(cfg, ranks.K, B, mesh, pipeline_unroll=2)
+    with pytest.raises(ValueError, match="pipeline_unroll"):
+        make_parallel_multi_step(cfg, ranks.K, B, mesh, pipeline_unroll=0)
     # a mesh made without a process group has no collectives
     step = make_parallel_train_step(cfg, mesh)
     with pytest.raises(RuntimeError, match="no process groups"):
@@ -210,16 +212,31 @@ def world2(tmp_path_factory):
     jnew, jmetrics = jax_parallel_step(jcfg, jmesh, donate=False)(
         jax.device_put(jstate, replicated(jmesh)),
         *jax_shard_batch(jmesh, images, digits))
+    # JAX's unrolled K-step scan, from batch 1 of a permutation, with its
+    # per-step draws
+    data = _dataset()
+    perm = np.random.default_rng(4).permutation(len(data[0]))
+    draws = [{k: v.numpy() for k, v in jax_noise(
+        jax.random.fold_in(jstate.key, i), jcfg, B).items()}
+        for i in range(ranks.K)]
+    unrolled = {}
+    for u in ranks.UNROLLS:
+        jnew_u, jm_u = jax_make_multi_step(jcfg, ranks.K, B, donate=False,
+                                           pipeline_unroll=u)(
+            jstate, jnp.asarray(data[0]), jnp.asarray(data[1]),
+            jnp.asarray(perm, jnp.int32), jnp.asarray(1, jnp.int32))
+        unrolled[u] = (jnew_u.params, np.asarray(jm_u["loss"]))
     results = launch(ranks.world2, "gloo", ["cpu"] * 2,
                      (AIRConfig(**KW), jax_state, images, digits,
-                      _global_draws(jcfg, jstate), _dataset(),
-                      str(tmp_path_factory.mktemp("world2"))),
+                      _global_draws(jcfg, jstate), data,
+                      str(tmp_path_factory.mktemp("world2")),
+                      (perm, draws)),
                      timeout=LAUNCH_SECONDS)
-    return jnew, jmetrics, results
+    return jnew, jmetrics, results, unrolled
 
 
 def test_world2_step_matches_jax_parallel_step(world2):
-    jnew, jmetrics, results = world2
+    jnew, jmetrics, results, _ = world2
     for out in results:
         assert out["shape"] == {"data": 2, "model": 1}
         params, metrics = out["step"]
@@ -255,6 +272,25 @@ def test_world2_multi_step_matches_multi_step(world2):
                    for a, b in zip(par, single)) < 1e-4
 
 
+@pytest.mark.parametrize("unroll", ranks.UNROLLS)
+def test_world2_unrolled_multi_step_matches_jax(world2, unroll):
+    """K steps of the data-parallel step at pipeline_unroll U (U = 2 leaves
+    JAX's scan a remainder of one) from JAX's state with its draws, against JAX's
+    unrolled single-device scan (losses to 1e-4 relative, params to 1e-5),
+    and bit-equal to the data-parallel step at U = 1."""
+    unrolled = world2[3]
+    for out in world2[2]:
+        runs = out["unrolled"]
+        params, loss = runs[unroll]
+        assert loss == runs[1][1]
+        assert all(np.array_equal(a, b) for a, b in zip(params, runs[1][0]))
+        jparams, jloss = unrolled[unroll]
+        np.testing.assert_allclose(loss, jloss, rtol=1e-4)
+        for a, b in zip(params, tree_leaves(params_from_jax(
+                to_np(jparams), "cpu"))):
+            np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("loop", ["host", "device"])
 def test_world2_trainer(world2, loop):
     """Both ranks train in step (one replica), only rank 0 writes, and a
@@ -278,7 +314,8 @@ def test_world2_trainer(world2, loop):
 
 def test_driver_data_parallel(tmp_path, monkeypatch):
     """python -m air_tpu_torch.training --data-parallel --n-devices 2
-    --device cpu: two ranks over gloo, from a generated set."""
+    --device cpu: two ranks over gloo, from a generated set, with the
+    unroll flag (one step per pair of replays around the all-reduce)."""
     monkeypatch.chdir(tmp_path)
     result = training.main([
         "--device", "cpu", "--data-parallel", "--n-devices", "2",
@@ -286,7 +323,7 @@ def test_driver_data_parallel(tmp_path, monkeypatch):
         "--rnn-units", "8", "--no-cnn", "--eval-every", "2",
         "--img-every", "100", "--grad-every", "2", "--save-every", "2",
         "--multi-step", "2", "--device-data", "-r", str(tmp_path / "res"),
-        "--stall-restart-step", "0"])
+        "--stall-restart-step", "0", "--pipeline-unroll", "2"])
     assert result["step"] == 2 and np.isfinite(result["test_accuracy"])
     assert sorted(os.listdir(tmp_path / "res" / "models")) == [
         "air-model-0.json", "air-model-0.npz", "air-model-2.json",

@@ -409,21 +409,44 @@ def test_checkpoint_sidecars_cross_packages(tmp_path):
 # --- the driver -------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--data-parallel", "--pipeline-unroll", "2"], ["--pipeline-unroll", "2"]],
+    ["--data-parallel", "--pipeline-unroll", "0"], ["--pipeline-unroll", "0"]],
     ids=lambda f: f[0])
-def test_unported_flags_raise(flags):
-    """--pipeline-unroll above 1 raises, with --data-parallel too (which
-    trains since it was ported: tests/test_torch_parallel.py)."""
-    args = training.build_parser().parse_args(flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        training.check_ported(args)
-    with pytest.raises(NotImplementedError):
-        training.main(flags)
+def test_unported_flags_raise(flags, tmp_path, monkeypatch):
+    """--pipeline-unroll below 1 raises before a results folder is made,
+    with --data-parallel too; the unroll itself trains
+    (test_trainer_takes_pipeline_unroll)."""
+    monkeypatch.chdir(tmp_path)
+    data = tiny_dataset(16)
+    args = training.build_parser().parse_args(
+        ["--device", "cpu", *flags, "--results-folder", "res"])
+    cfg, tcfg = training.configs(args)
+    with pytest.raises(ValueError, match="pipeline_unroll"):
+        trainer.Trainer(cfg, tcfg, data, data)
+    assert not os.path.exists(tmp_path / "res")
+
+
+@pytest.mark.parametrize("loop", ["host", "device-data"])
+def test_trainer_takes_pipeline_unroll(loop, tmp_path):
+    """pipeline_unroll 2 trains both loops to the losses and params of
+    pipeline_unroll 1 (every step one replay whatever U)."""
+    data, test = tiny_dataset(), tiny_dataset(12, seed=9)
+    runs = {}
+    for u in (1, 2):
+        tr, result = run_trainer(
+            tmp_path, f"u{u}", data, test, max_iterations=3,
+            num_summaries_every=0, img_summaries_every=0,
+            var_summaries_every=0, grad_summaries_every=0,
+            save_params_every=0, tensorboard=False, pipeline_unroll=u,
+            device_data=loop == "device-data")
+        assert result["step"] == 3
+        runs[u] = (train_records(tr), tr.state.params)
+    assert len(runs[1][0]) == 3 and runs[2][0] == runs[1][0]
+    for a, b in zip(tree_leaves(runs[2][1]), tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)
 
 
 def test_driver_defaults_are_the_robust_default_on_the_card():
     args = training.build_parser().parse_args([])
-    training.check_ported(args)
     cfg, tcfg = training.configs(args)
     assert (args.device, cfg.st_impl, tcfg.device) == ("cuda", "inline",
                                                        "cuda")
@@ -466,7 +489,6 @@ def test_training_cli_passes_the_layout_flags(flags, want):
     passes them (training.py:255-264); without them the config's own
     defaults stand."""
     args = training.build_parser().parse_args(flags)
-    training.check_ported(args)
     cfg, _ = training.configs(args)
     assert {k: getattr(cfg, k) for k in want} == want
 

@@ -32,6 +32,8 @@ from air_tpu_torch.tree import (tree_leaves, tree_leaves_with_path,
                                 tree_unflatten)
 
 K = 3          # steps of the multi-step cases
+UNROLLS = (2,)     # the unrolled case: U = 2 leaves JAX's scan a
+                   # remainder of one
 
 
 def state_from_jax(cfg, params, opt_leaves, step: int = 0):
@@ -118,9 +120,11 @@ def world1(rank, device, cfg, images, digits, data):
 
 
 def world2(rank, device, cfg, jax_state, images, digits, noise, data,
-           folder):
+           folder, unrolled):
     """Data axis 2: the step from the JAX package's state with its global
-    draws, the eval step, the captured multi-step and the trainer."""
+    draws, the eval step, the captured multi-step, the multi-step at
+    pipeline_unroll 1 and UNROLLS (``unrolled``: the permutation and the
+    K steps' global draws) and the trainer."""
     torch.set_num_threads(1)
     mesh = make_mesh(2)
     out = {"shape": mesh.shape}
@@ -151,6 +155,15 @@ def world2(rank, device, cfg, jax_state, images, digits, noise, data,
                          noise=draws)
         runs.append((arrays(new.params), m["loss"].tolist(), new.step))
     out["multi_step"] = runs
+
+    perm, draws = unrolled
+    out["unrolled"] = {}
+    for u in (1, *UNROLLS):
+        new, m = make_parallel_multi_step(cfg, K, b, mesh,
+                                          pipeline_unroll=u)(
+            state, data_images, data_digits, torch.from_numpy(perm), 1,
+            noise=draws)
+        out["unrolled"][u] = (arrays(new.params), m["loss"].tolist())
 
     out["trainer"] = {loop: _trainer_runs(rank, cfg, data, folder, loop)
                       for loop in ("host", "device")}
