@@ -94,13 +94,29 @@ def leaf_sharding(mesh: Mesh, leaf) -> str | None:
     return None
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws are made on the meta device: shapes, no
+    memory and no values."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_shapes(config: AIRConfig) -> dict:
+    """The param tree of ``config``'s model as meta tensors: the shapes of
+    ``init_air_params`` without an init (the scaled model's LSTM gate
+    kernel alone is 86 MB)."""
+    return init_air_params(_MetaGenerator(), config)
+
+
 def param_sharding(mesh: Mesh, params) -> list:
     """``leaf_sharding`` of each leaf of a full-shaped param tree, in leaf
-    order; given an ``AIRConfig``, of its model's params (their shapes from
-    an init on the CPU: a shard's shape alone does not tell a column slice
-    from a narrower replicated leaf)."""
+    order; given an ``AIRConfig``, of its model's params (``param_shapes``:
+    a shard's shape alone does not tell a column slice from a narrower
+    replicated leaf)."""
     if isinstance(params, AIRConfig):
-        params = init_air_params(torch.Generator().manual_seed(0), params)
+        params = param_shapes(params)
     return [leaf_sharding(mesh, leaf) for leaf in tree_leaves(params)]
 
 

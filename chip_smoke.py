@@ -46,8 +46,11 @@ line with the card's name and power limit as nvidia-smi reports them:
               losses bit for bit.
   6. times    device time per launch of each kernel, its plain version and a
               PyTorch yardstick at B = 64 (CUDA graphs of back-to-back
-              launches, timed with CUDA events), the bound from the published
-              H100 SXM peaks; every kernel (the streamed-weight resample in
+              launches, timed with CUDA events, each launch on the next of
+              as many copies of its inputs as it takes to read them from
+              HBM), the bound from the published H100 SXM peaks on the
+              bytes and products these inputs need (``costs``); every
+              kernel (the streamed-weight resample in
               both directions, the streamed-weight write-accumulate forward
               and backward, the inline read, write, read backward and write
               backward) again at B = 1 (the demo's request), 64, 256 and
@@ -198,6 +201,37 @@ line with the card's name and power limit as nvidia-smi reports them:
               ``python -m air_tpu_torch.eval_checkpoint`` on its checkpoint
               and on the shipped CNN checkpoint over the fixture (>= 0.9),
               each launching kernels 1-2 max_steps times.
+ 13. configs  the JAX package's BASELINE configs 4 (scaled: canvas 100,
+              LSTM 512, VAE latent 100, batch 1024) and 3 (harder: 5
+              attention steps, 0-3 digits, a learned background), as
+              ``python -m air_tpu_torch.training`` takes their flags. (a)
+              every kernel at canvas 100, window 28 against its plain
+              version at B = 1024, 7 and 1 (KERNEL_TOL, SCALAR_TOL), also
+              with windows larger than the canvas and off it (at canvas
+              50 too; SCALAR_RANGES), its ms
+              per launch at B = 1024 beside its bound, its plain version
+              and its library chain, and the ptxas report of the
+              run-time-size (<0, 0>) instantiations. (b) scaled, on 1024
+              canvases generated from the committed pool: step 0 through
+              kernels 1-4 and through kernels 5-7 against the plain path
+              (phase 5's GRAD_TOL); SCALED_STEPS captured steps bit-equal
+              to as many eager ones, kernels 1-4 max_steps times a step,
+              the mean reconstruction loss of the last 5 below that of
+              the first 5; ``python -m air_tpu_torch.eval_checkpoint``
+              with the scaled flags on a checkpoint of the run (kernels
+              1-2 max_steps times each); ms/step (CUDA events), images/s,
+              the busy share, the first call (the capture) and the
+              memory it reserves. (c) harder:
+              ``python -m air_tpu_torch.generate_multi_mnist --max-digits 3
+              --max-in-common 3 --bg-kind noise --bg-max-intensity 0.6``
+              (600 canvases), the trainer with HARDER_FLAGS as phase 7 runs
+              it (kernels 1-4 five times a step, a resume bit for bit),
+              then the eval CLI (kernels 1-2 five times each). (d) each
+              configuration's trained params served by ModelWrapper.infer
+              through kernels 1-2 and at the wrapper's step-parallel
+              default, against the plain scan (reconstructions to
+              PATH_TOL, digit counts equal), with latencies for 1 and 64
+              canvases (and 1024 scaled).
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -208,12 +242,14 @@ a temporary directory that is removed.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import hashlib
 import importlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -229,6 +265,7 @@ from air_tpu_torch.data import (MultiMNISTConfig, generate_dataset,
                                 load_digit_pool, load_test_data)
 from air_tpu_torch.data.png import read_png_grey
 from air_tpu_torch.data.records import write_records
+from air_tpu_torch.interop import params_to_jax
 from air_tpu_torch.kernels import build, st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
@@ -268,7 +305,7 @@ FIXTURE = os.path.join(REPO, "air_tpu_torch", "assets", "serve_canvases.npz")
 MODULES = (st_inline, st_pallas, st_fused)
 DEVICE = "cuda"
 
-TIME_BUDGET_S = 300.0
+TIME_BUDGET_S = 600.0    # half the 1200 s the script may take
 KERNEL_TOL = 1e-5       # kernel vs plain version, fp32 FMA in both
 SCALAR_TOL = 1e-4       # backward scalar cotangents, x max(1, |plain|)
 PATH_TOL = 1e-4         # served reconstructions, kernels vs plain versions
@@ -353,8 +390,32 @@ REAL_PER_STRATUM = 200
 REAL_TEST = 100
 REAL_SLICE = ":1400"         # the UCI digits the real set draws from
 REAL_BG = os.path.join(REPO, "images", "harder_ref_textures.png")
+# phase 13: the JAX package's BASELINE configs 4 (scaled) and 3 (harder), as
+# python -m air_tpu_torch.training takes them (bench.py:get_config;
+# RESULTS.md, "Round-4 scaled config trains"; scripts/run_bg_r4.sh)
+SCALED_CS = 100
+SCALED_BATCH = 1024
+SCALED_FLAGS = ["--canvas-size", "100", "--rnn-units", "512", "--vae-latent",
+                "100", "--batch-size", str(SCALED_BATCH), "--anneal-iters",
+                "190", "--anneal-hold", "940"]
+SCALED_KERNEL_BATCHES = (SCALED_BATCH, 7, 1)
+SCALED_STEPS = 20            # eager and captured steps of the scaled step
+SCALED_MEAN_OF = 5
+HARDER_FLAGS = ["--max-steps", "5", "--max-digits", "3",
+                "--learn-background", "--bg-init", "data"]
+HARDER_DATA = ["--max-digits", "3", "--max-in-common", "3",
+               "--bg-kind", "noise", "--bg-max-intensity", "0.6"]
+HARDER_PER_STRATUM = 150     # 0-3 digits: 600 canvases, 100 held out
+HARDER_TEST = 100
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+L2_BYTES = 50 * 2 ** 20      # the H100's L2 cache
+ROTATE_MAX = 512             # copies of the inputs timed launches take in turn
+# the window scalars of the kernel checks: (s range, bound of |x| and |y|);
+# "smoke" is every phase's, the others windows larger than the canvas and
+# partly or wholly off it, as training can move them (phase 13 (a))
+SCALAR_RANGES = {"smoke": ((0.1, 1.0), 1.0), "wide": ((0.05, 3.0), 2.5),
+                 "off-canvas": ((0.1, 0.6), 4.0)}
 
 T0 = time.perf_counter()
 
@@ -408,19 +469,24 @@ def digest(arrays) -> str:
     return h.hexdigest()[:16]
 
 
-def scalars(b: int, gen: torch.Generator):
-    """s in [0.1, 1], x and y in [-1, 1]."""
+def scalars(b: int, gen: torch.Generator, scalar_range: str = "smoke"):
+    """s, x and y uniform in SCALAR_RANGES[scalar_range] (smoke: s in
+    [0.1, 1], x and y in [-1, 1])."""
+    (lo, hi), span = SCALAR_RANGES[scalar_range]
     u = torch.rand((3, b), generator=gen, device=DEVICE)
-    return 0.1 + 0.9 * u[0], 2.0 * u[1] - 1.0, 2.0 * u[2] - 1.0
+    return (lo + (hi - lo) * u[0], span * (2.0 * u[1] - 1.0),
+            span * (2.0 * u[2] - 1.0))
 
 
-def kernel_inputs(b: int, seed: int) -> dict:
+def kernel_inputs(b: int, seed: int, cs: int = CS, ws: int = WS,
+                  scalar_range: str = "smoke") -> dict:
+    """Random operands of the kernels at canvas cs and window ws."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    s, x, y = scalars(b, gen)
+    s, x, y = scalars(b, gen, scalar_range)
     return dict(
-        img=torch.rand((b, CS, CS), generator=gen, device=DEVICE),
-        win=torch.rand((b, WS, WS), generator=gen, device=DEVICE),
-        canvas=torch.rand((b, CS * CS), generator=gen, device=DEVICE),
+        img=torch.rand((b, cs, cs), generator=gen, device=DEVICE),
+        win=torch.rand((b, ws, ws), generator=gen, device=DEVICE),
+        canvas=torch.rand((b, cs * cs), generator=gen, device=DEVICE),
         coeff=torch.rand((b,), generator=gen, device=DEVICE),
         s=s, x=x, y=y)
 
@@ -431,22 +497,23 @@ def core_inputs(d: dict, seed: int) -> dict:
     wrappers build from them, and random output cotangents of the read
     [B, ws, ws] and of the write [B, cs, cs]."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    b = d["s"].shape[0]
+    b, cs, ws = d["s"].shape[0], d["img"].shape[-1], d["win"].shape[-1]
     inv_s = 1.0 / d["s"]
     read = (d["s"], d["y"], d["s"], d["x"])
     write = (inv_s, -d["y"] * inv_s, inv_s, -d["x"] * inv_s)
     return dict(
         read=read, write=write,
-        w_read=(_axis_weight_matrix(read[0], read[1], WS, CS),
-                _axis_weight_matrix(read[2], read[3], WS, CS)),
-        w_write=(_axis_weight_matrix(write[0], write[1], CS, WS),
-                 _axis_weight_matrix(write[2], write[3], CS, WS)),
-        g_read=torch.randn((b, WS, WS), generator=gen, device=DEVICE),
-        g_write=torch.randn((b, CS, CS), generator=gen, device=DEVICE))
+        w_read=(_axis_weight_matrix(read[0], read[1], ws, cs),
+                _axis_weight_matrix(read[2], read[3], ws, cs)),
+        w_write=(_axis_weight_matrix(write[0], write[1], cs, ws),
+                 _axis_weight_matrix(write[2], write[3], cs, ws)),
+        g_read=torch.randn((b, ws, ws), generator=gen, device=DEVICE),
+        g_write=torch.randn((b, cs, cs), generator=gen, device=DEVICE))
 
 
 def canvas3(d):
-    return d["canvas"].reshape(-1, CS, CS)
+    cs = d["img"].shape[-1]
+    return d["canvas"].reshape(-1, cs, cs)
 
 
 # each kernel: (its wrapper, its plain version, the number of matrix
@@ -454,9 +521,10 @@ def canvas3(d):
 # core_inputs
 KERNELS = {
     "inline_attention_read": (
-        lambda d, e: st_inline.attention_read_fwd(d["img"], *e["read"], WS),
-        lambda d, e: st_inline.attention_read_fwd_plain(d["img"], *e["read"],
-                                                        WS), 1),
+        lambda d, e: st_inline.attention_read_fwd(d["img"], *e["read"],
+                                                  d["win"].shape[-1]),
+        lambda d, e: st_inline.attention_read_fwd_plain(
+            d["img"], *e["read"], d["win"].shape[-1]), 1),
     "inline_write_accumulate": (
         lambda d, e: st_inline.write_accumulate_fwd(
             canvas3(d), d["win"], *e["write"], d["coeff"]),
@@ -497,6 +565,46 @@ KERNELS = {
 }
 
 
+def kernel_errors(batches, cs: int, ws: int, seed: int, phase: str,
+                  card_line: str, scalar_range: str = "smoke") -> dict:
+    """Every kernel against its plain version on the same inputs at each
+    batch of ``batches``, canvas cs and window ws, the window scalars drawn
+    from SCALAR_RANGES[scalar_range]; fails beyond KERNEL_TOL (values,
+    matrix cotangents) or SCALAR_TOL (scalar cotangents), and prints the
+    largest differences. Returns each kernel's largest matrix difference."""
+    err = {k: 0.0 for k in KERNELS}
+    scalar_err = {k: 0.0 for k in KERNELS}
+    for b in batches:
+        d = kernel_inputs(b, seed + b, cs, ws, scalar_range)
+        e_in = core_inputs(d, seed + 100 + b)
+        for kname, (got_fn, want_fn, n_mat) in KERNELS.items():
+            got = got_fn(d, e_in)
+            torch.cuda.synchronize()
+            want = want_fn(d, e_in)
+            torch.cuda.synchronize()
+            mat, scal = errors(got, want, n_mat)
+            err[kname] = max(err[kname], mat)
+            scalar_err[kname] = max(scalar_err[kname], scal)
+            if not (mat <= KERNEL_TOL and scal <= SCALAR_TOL):
+                fail(f"{kname} at B={b}, ({cs}, {ws}), {scalar_range} "
+                     f"scalars: matrix max abs diff "
+                     f"{mat} (tol {KERNEL_TOL}), scalar rel diff {scal} (tol "
+                     f"{SCALAR_TOL})")
+    say(phase, card_line, "kernel vs plain max abs diff "
+        + " ".join(f"{k}={v:.3g}" for k, v in err.items())
+        + f" (tol {KERNEL_TOL}); backward scalar cotangents |diff| / "
+        "max(1, |plain|) "
+        + " ".join(f"{k}={v:.3g}" for k, v in scalar_err.items()
+                   if k.endswith("_bwd"))
+        + f" (tol {SCALAR_TOL}); B={','.join(map(str, batches))}"
+        + ("" if (cs, ws) == (CS, WS) else f" at canvas {cs}, window {ws}")
+        + ("" if scalar_range == "smoke" else
+           f"; {scalar_range} window scalars (s in "
+           f"{list(SCALAR_RANGES[scalar_range][0])}, |x|, |y| <= "
+           f"{SCALAR_RANGES[scalar_range][1]})"))
+    return err
+
+
 def errors(got, want, n_mat: int) -> tuple[float, float]:
     """(max abs diff over the matrix outputs, max over the scalar outputs of
     |diff| / max(1, |plain|))."""
@@ -509,19 +617,22 @@ def errors(got, want, n_mat: int) -> tuple[float, float]:
     return mat, scal
 
 
-def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
-    """Device time per call of ``fn``: ``reps`` back-to-back calls captured in
-    one CUDA graph, replayed ``replays`` times between two CUDA events, so
-    the host's launch overhead is not in the number."""
+def device_ms(fns, reps: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fns`` (a callable, or a list of callables
+    called in turn): at least ``reps`` back-to-back calls, as many of each,
+    captured in one CUDA graph, replayed ``replays`` times between two CUDA
+    events, so the host's launch overhead is not in the number."""
+    fns = fns if isinstance(fns, list) else [fns]
+    calls = fns * -(-reps // len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for fn in calls[:3]:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -532,7 +643,7 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    return start.elapsed_time(end) / (len(calls) * replays)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -541,42 +652,127 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def costs(b: int) -> dict:
-    """(bytes, FLOP) of each kernel's function at batch b, for its bound:
-    each input read once, each output written once."""
+def rotation(nbytes: float, available: int) -> int:
+    """How many copies of a kernel's inputs its timed launches take in turn:
+    enough that the launches between two reads of one copy move twice the
+    L2 cache, so that each launch reads its inputs from HBM, as its bound
+    and a caller whose batch outgrows the cache find them; at most
+    ``available``."""
+    return min(available, 1 + -(-2 * L2_BYTES // int(nbytes)))
+
+
+def _copy(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple):
+        return tuple(_copy(x) for x in v)
+    return {k: _copy(x) for k, x in v.items()}
+
+
+def input_sets(b: int, seed: int, core_seed: int, cs: int = CS,
+               ws: int = WS) -> list:
+    """The kernels' timed inputs at batch b, canvas cs and window ws:
+    kernel_inputs(b, seed) and core_inputs(.., core_seed), and copies of
+    them (the same values at other addresses), as many as the kernel of the
+    fewest bytes rotates over (``rotation``, at most ROTATE_MAX). A list of
+    (d, e, the Library of d and e)."""
+    d = kernel_inputs(b, seed, cs, ws)
+    e = core_inputs(d, core_seed)
+    n = max(rotation(nbytes, ROTATE_MAX) for nbytes, _ in costs(d, e).values())
+    sets = [(d, e)] + [(_copy(d), _copy(e)) for _ in range(n - 1)]
+    return [(d, e, Library(d, e)) for d, e in sets]
+
+
+def kernel_times(kname: str, sets: list) -> dict:
+    """Kernel ``kname`` on ``sets`` (input_sets): device ms per launch of
+    the kernel, of its plain version and of its library chain, each launch
+    taking the next of ``rotation`` copies of the inputs; and its bound
+    from ``costs`` on these inputs."""
+    fn, plain_fn, _ = KERNELS[kname]
+    nbytes, flops = costs(*sets[0][:2])[kname]
+    b_ms, b_by = bound_ms(nbytes, flops)
+    use = sets[:rotation(nbytes, len(sets))]
+    t = {"ms": device_ms([functools.partial(fn, d, e) for d, e, _ in use]),
+         "plain_ms": device_ms([functools.partial(plain_fn, d, e)
+                                for d, e, _ in use]),
+         "library_ms": library_ms([lib for _, _, lib in use], kname),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+         "copies": len(use),
+         "from_hbm": (len(use) - 1) * nbytes >= 2 * L2_BYTES}
+    if t["from_hbm"] and t["ms"] < t["bound_ms"]:
+        fail(f"{kname} took {t['ms']} ms a launch, below its bound "
+             f"{b_ms} ms: costs counts more than the function needs")
+    return t
+
+
+def times_line(t: dict) -> str:
+    return (f"ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} library_ms="
+            f"{t['library_ms']:.5f} ms/library={t['ms'] / t['library_ms']:.3f}"
+            f" bound_ms={t['bound_ms']:.6f} ({t['bound_by']}; "
+            f"{t['bytes']:.0f} B, {t['flops']:.0f} FLOP) ms/bound="
+            f"{t['ms'] / t['bound_ms']:.2f}; {t['copies']} copies of the "
+            "inputs in turn, " + ("each read from HBM" if t["from_hbm"] else
+                                  "fewer than the L2 cache holds"))
+
+
+def _touched(wy: torch.Tensor, wx: torch.Tensor, canvas_dim: int) -> tuple:
+    """Per item of a pair of [B, out, in] hat-weight matrices whose dim
+    ``canvas_dim`` runs over the canvas: the canvas rows it touches, the
+    canvas columns, and the nonzero taps of wy and of wx (float64 [B])."""
+    other = 3 - canvas_dim
+    return ((wy != 0).any(dim=other).sum(-1).double(),
+            (wx != 0).any(dim=other).sum(-1).double(),
+            (wy != 0).sum((1, 2)).double(), (wx != 0).sum((1, 2)).double())
+
+
+def costs(d: dict, e: dict) -> dict:
+    """(bytes, FLOP) of each kernel's function on the inputs of
+    kernel_inputs ``d`` and core_inputs ``e``, for its bound: each input
+    read once and each output written once, as far as these inputs need
+    them. An item's hat weights touch a band of the canvas's rows and
+    columns (the window's scale and place set it) with at most two taps a
+    row: a canvas-side input that reaches the outputs only through them
+    (the image of a read, the output cotangent of a write) is counted on
+    the rows and columns they touch, and a product on its nonzero taps.
+    Outputs are counted whole, and so are the window side and the
+    streamed kernels' [B, out, in] weight matrices, which are inputs."""
     f32 = 4
-    # backward of the inline kernels: the products with a weight matrix
-    # dense, as counted for the forward kernels (read: g Wx, Wy^T (g Wx),
-    # Wy img; write: g Wx, Wy^T (g Wx), Wy win), but dWy and dWx only at the
-    # at most two taps per row that the scalar cotangents take, and d_coeff
-    # as <Wy win, g Wx>. Streamed weights: both [B, out, in] weight matrices
-    # read as inputs; the backward's dWy and dWx are outputs, dense, as is
-    # their work (gwx, tmp, dWy, d_win, dWx, and d_coeff as <gwx, tmp>)
-    read = (f32 * b * (CS * CS + 4 + WS * WS),
-            2 * b * (WS * CS * CS + WS * WS * CS))
-    write = (f32 * b * (CS * CS + WS * WS + 5 + CS * CS),
-             2 * b * (CS * WS * WS + CS * CS * WS + CS * CS))
-    dots = (f32 * b * (CS * CS + 2 * WS * CS + WS * WS), read[1])
-    return {
-        "inline_attention_read": read,
-        "inline_write_accumulate": write,
+    cs, ws = d["img"].shape[-1], d["win"].shape[-1]
+    rr, cr, nyr, nxr = _touched(*e["w_read"], canvas_dim=2)
+    rw, cw, nyw, nxw = _touched(*e["w_write"], canvas_dim=1)
+    read_macs = nxr * rr + nyr * ws          # img Wx^T on the touched rows,
+    #                                          then Wy on the taps
+    write_macs = nxw * ws + nyw * cw         # win Wx^T, then Wy on the taps
+    per_item = {
+        "inline_attention_read": (rr * cr + 4 + ws * ws, read_macs),
+        "inline_write_accumulate": (2 * cs * cs + ws * ws + 5,
+                                    write_macs + rw * cw),
+        # d_img = Wy^T g Wx, then the taps of dWy (through img Wx^T) and of
+        # dWx (through Wy img) that the four scalar cotangents take
         "inline_attention_read_bwd": (
-            f32 * b * (2 * CS * CS + WS * WS + 8),
-            2 * b * (WS * WS * CS + 2 * WS * CS * CS + 2 * WS * CS
-                     + 2 * WS * WS)),
+            rr * cr + ws * ws + 4 + cs * cs + 4,
+            ws * nxr + nyr * cr + read_macs + nyr * cr + nxr * ws),
+        # d_win = coeff Wy^T g Wx on the touched rows, the taps of dWy
+        # (through win Wx^T) and of dWx (through Wy win), and d_coeff
         "inline_write_accumulate_bwd": (
-            f32 * b * (2 * WS * WS + CS * CS + 10),
-            2 * b * (CS * CS * WS + 2 * CS * WS * WS + CS * WS + 2 * CS * WS
-                     + 2 * CS * CS)),
-        "pallas_attention_read": dots,
-        "pallas_attention_write": dots,
-        "fused_write_accumulate": (
-            f32 * b * (2 * CS * WS + WS * WS + 1 + 2 * CS * CS), write[1]),
+            2 * ws * ws + rw * cw + 5 + 5,
+            nxw * rw + nyw * ws + write_macs + nyw * ws + nxw * rw + rw * cw),
+        "pallas_attention_read": (rr * cr + 2 * ws * cs + ws * ws, read_macs),
+        "pallas_attention_write": (ws * ws + 2 * cs * ws + cs * cs,
+                                   write_macs),
+        "fused_write_accumulate": (2 * cs * ws + ws * ws + 1 + 2 * cs * cs,
+                                   write_macs + rw * cw),
+        # dWy and dWx are dense outputs: dWy takes g's touched columns on
+        # every row, dWx its touched rows on every column
         "fused_write_accumulate_bwd": (
-            f32 * b * (2 * CS * WS + WS * WS + 1 + CS * CS + 2 * CS * WS
-                       + WS * WS + 1),
-            2 * b * (2 * CS * CS * WS + 3 * CS * WS * WS + CS * WS)),
+            ws * ws + 2 * cs * ws + 1 + (cs * cw + rw * cs - rw * cw)
+            + 2 * cs * ws + ws * ws + 1,
+            nxw * ws + cs * ws * cw + nyw * ws + cs * ws * rw + rw * nxw
+            + nyw * ws + rw * cw),
     }
+    zero = torch.zeros_like(rr)              # [B]: sums a count over items
+    return {k: (f32 * float((nb + zero).sum()), 2 * float((m + zero).sum()))
+            for k, (nb, m) in per_item.items()}
 
 
 class Library:
@@ -616,9 +812,10 @@ class Library:
         wy, wx_t = self.plain_write
         return torch.bmm(torch.bmm(wy, self.d["win"]), wx_t)
 
-    def ms(self, kname: str) -> float:
-        """Device ms of the yardstick of kernel ``kname``."""
-        fn, less = {
+    def chain(self, kname: str) -> tuple:
+        """(the yardstick of kernel ``kname``, the forward to take off its
+        time or None)."""
+        return {
             "inline_attention_read": (self.read_fwd, None),
             "inline_write_accumulate": (self.write_fwd, None),
             "inline_attention_read_bwd": (self.read_bwd, self.read_fwd),
@@ -628,8 +825,16 @@ class Library:
             "fused_write_accumulate": (self.write_fwd, None),
             "fused_write_accumulate_bwd": (self.write_bwd, self.write_fwd),
         }[kname]
-        t = device_ms(fn)
-        return t - device_ms(less) if less is not None else t
+
+
+def library_ms(libs: list, kname: str) -> float:
+    """Device ms of the yardstick of kernel ``kname``, each call on the next
+    Library of ``libs``."""
+    chains = [lib.chain(kname) for lib in libs]
+    t = device_ms([fn for fn, _ in chains])
+    if chains[0][1] is None:
+        return t
+    return t - device_ms([less for _, less in chains])
 
 
 def check_serve(impl: str, params, canvases, truth, card_line: str):
@@ -700,26 +905,8 @@ def check_train(config, state0, images, digits, card_line: str) -> tuple:
     _, m_p = graded["xla"](state0, images, digits, noise=noise)
     torch.cuda.synchronize()
     expect_launches(before, {}, "the plain path")
-    rel = {k: abs(float(m_k[k]) - float(m_p[k])) / abs(float(m_p[k]))
-           for k in ("loss", "grad_norm")}
-    grad_err = 0.0
-    for (path, g), w in zip(
-            tree_leaves_with_path(m_k["grad_tensors"]["original"]),
-            tree_leaves(m_p["grad_tensors"]["original"])):
-        e = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
-        grad_err = max(grad_err, e)
-        if not (e <= GRAD_TOL):
-            fail(f"{impl} step 0 gradient of {'/'.join(map(str, path))}: "
-                 f"kernels vs plain path {e} > {GRAD_TOL} x max(1, max "
-                 "|leaf|)")
-    if not all(v <= GRAD_TOL for v in rel.values()):
-        fail(f"{impl} step 0 kernels vs plain path, relative diff {rel} > "
-             f"{GRAD_TOL}")
     say("train", card_line, f"st_impl={impl} step 0 kernels vs plain path: "
-        f"loss {float(m_k['loss']):.4f} vs {float(m_p['loss']):.4f} (rel "
-        f"{rel['loss']:.3g}), grad_norm rel {rel['grad_norm']:.3g}, "
-        f"gradient leaves max |diff| / max(1, max |leaf|) {grad_err:.3g} "
-        f"(tol {GRAD_TOL})")
+        + against_plain(impl, m_k, m_p))
 
     # the path's main run: TRAIN_STEPS steps through the kernels
     train_step = make_train_step(config)
@@ -805,6 +992,33 @@ def check_train(config, state0, images, digits, card_line: str) -> tuple:
     say("train", card_line, f"st_impl={impl} two runs of "
         f"{DETERMINISM_STEPS} steps from the same state: losses bit-equal")
     return main_launches, (losses, digest(tree_leaves(trained.params)))
+
+
+def against_plain(impl: str, m_k: dict, m_p: dict) -> str:
+    """Fail unless a step through the ``impl`` kernels (metrics ``m_k``,
+    with gradients) agrees with the plain path's step on the same params
+    and draws (``m_p``): the loss and grad_norm to GRAD_TOL relative, every
+    gradient leaf to GRAD_TOL x max(1, max |leaf|). Returns the line that
+    says how far they are apart."""
+    rel = {k: abs(float(m_k[k]) - float(m_p[k])) / abs(float(m_p[k]))
+           for k in ("loss", "grad_norm")}
+    grad_err = 0.0
+    for (path, g), w in zip(
+            tree_leaves_with_path(m_k["grad_tensors"]["original"]),
+            tree_leaves(m_p["grad_tensors"]["original"])):
+        e = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+        grad_err = max(grad_err, e)
+        if not (e <= GRAD_TOL):
+            fail(f"{impl} step 0 gradient of {'/'.join(map(str, path))}: "
+                 f"kernels vs plain path {e} > {GRAD_TOL} x max(1, max "
+                 "|leaf|)")
+    if not all(v <= GRAD_TOL for v in rel.values()):
+        fail(f"{impl} step 0 kernels vs plain path, relative diff {rel} > "
+             f"{GRAD_TOL}")
+    return (f"loss {float(m_k['loss']):.4f} vs {float(m_p['loss']):.4f} (rel "
+            f"{rel['loss']:.3g}), grad_norm rel {rel['grad_norm']:.3g}, "
+            f"gradient leaves max |diff| / max(1, max |leaf|) "
+            f"{grad_err:.3g} (tol {GRAD_TOL})")
 
 
 def train_step_ms(train_step, state, images, digits, runs: int = 10):
@@ -1744,6 +1958,325 @@ def check_real_handwriting(card_line: str) -> dict:
     return main_launches
 
 
+def generic_ptxas(report: str) -> list:
+    """(kernel, its ptxas lines) of each run-time-size instantiation
+    (template arguments <0, 0, ...>) in a library's -Xptxas -v report."""
+    out, name = [], None
+    for line in report.splitlines():
+        if "entry function" in line:
+            found = re.search(r"(st_[a-z_]*kernel)I((?:Li\d+E)+)E", line)
+            args = found and re.findall(r"Li(\d+)E", found.group(2))
+            name = (found and args[:2] == ["0", "0"]
+                    and f"{found.group(1)}<{', '.join(args)}>")
+            if name:
+                out.append((name, []))
+        elif name and ("registers" in line or "smem" in line
+                       or "spill" in line):
+            out[-1][1].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def dynamic_smem(b: int, cs: int, ws: int) -> dict:
+    """Each kernel's dynamic shared memory per block, in bytes, at batch b,
+    canvas cs and window ws, from its wrapper's launch geometry (above
+    48 KB the launchers set cudaFuncAttributeMaxDynamicSharedMemorySize)."""
+    return {
+        "inline_attention_read":
+            st_inline.fwd_geometry(b, cs, ws, "read").smem_bytes,
+        "inline_write_accumulate":
+            st_inline.fwd_geometry(b, ws, cs, "write").smem_bytes,
+        "inline_attention_read_bwd":
+            st_inline.read_bwd_geometry(b, cs, ws).smem_bytes,
+        "inline_write_accumulate_bwd":
+            st_inline.write_bwd_geometry(cs, ws).smem_bytes,
+        "pallas_attention_read":
+            st_pallas.geometry(b, ws, ws, cs, cs).smem_bytes,
+        "pallas_attention_write":
+            st_pallas.geometry(b, cs, cs, ws, ws).smem_bytes,
+        "fused_write_accumulate": st_fused.geometry(b, cs, ws).smem_bytes,
+        "fused_write_accumulate_bwd":
+            st_fused.bwd_geometry(b, cs, ws).smem_bytes}
+
+
+def check_scaled_kernels(libs: dict, card_line: str) -> dict:
+    """Phase 13 (a): every kernel at canvas SCALED_CS, window WS against its
+    plain version at each of SCALED_KERNEL_BATCHES with the window scalars
+    of each of SCALAR_RANGES (and at canvas CS with the ranges phase 3 does
+    not draw); at B = SCALED_BATCH its ms per launch beside its bound, its
+    plain version and its library chain; the ptxas report of the
+    run-time-size instantiations. Returns {kernel: kernel_times}."""
+    for i, scalar_range in enumerate(SCALAR_RANGES):
+        kernel_errors(SCALED_KERNEL_BATCHES, SCALED_CS, WS, 5000 + 10 * i,
+                      "configs", card_line, scalar_range)
+        if scalar_range != "smoke":      # phase 3 ran the smoke range
+            kernel_errors((SCALED_BATCH, 7), CS, WS, 5500 + 10 * i,
+                          "configs", card_line, scalar_range)
+    sets = input_sets(SCALED_BATCH, 6000, 6001, SCALED_CS, WS)
+    out = {}
+    for kname in SWEPT:
+        out[kname] = kernel_times(kname, sets)
+        say("configs", card_line, f"{kname} B={SCALED_BATCH} at "
+            f"({SCALED_CS}, {WS}): " + times_line(out[kname]))
+    for lib_name, built in libs.items():
+        for name, lines in generic_ptxas(built.ptxas_report):
+            say("configs", card_line, f"ptxas {lib_name} {name}: "
+                + " | ".join(lines))
+    say("configs", card_line, f"dynamic shared memory per block at B="
+        f"{SCALED_BATCH}, ({SCALED_CS}, {WS}), bytes: " + " ".join(
+            f"{k}={v}" for k, v in dynamic_smem(SCALED_BATCH, SCALED_CS,
+                                                WS).items()))
+    return out
+
+
+def scaled_batch() -> tuple:
+    """SCALED_BATCH canvases of 0-2 digits at canvas SCALED_CS generated from
+    the committed digit pool, and their digit counts, on the card."""
+    pool, labels = load_digit_pool()
+    per = -(-(SCALED_BATCH + 3) // 3)
+    got = generate_dataset(pool, labels, MultiMNISTConfig(
+        canvas_size=SCALED_CS, images_per_digit=per,
+        test_set_size=3 * per - SCALED_BATCH, seed=0))
+    images = np.stack(got["common"]["images"]).reshape(SCALED_BATCH, -1)
+    return (torch.from_numpy(images.astype(np.float32)).to(DEVICE),
+            torch.as_tensor(got["common"]["digits"], dtype=torch.int32,
+                            device=DEVICE))
+
+
+def check_scaled_train(card_line: str) -> tuple:
+    """Phase 13 (b): the scaled configuration's train step at batch
+    SCALED_BATCH. Returns (the inline kernels' launches in the captured
+    run, the config, the trained params, the batch's canvases)."""
+    args = training.build_parser().parse_args(["--device", DEVICE,
+                                               *SCALED_FLAGS])
+    config, _ = training.configs(args)
+    t = time.perf_counter()
+    images, digits = scaled_batch()
+    say("configs", card_line, f"scaled: {SCALED_BATCH} canvases of "
+        f"{SCALED_CS}x{SCALED_CS} generated from the committed pool in "
+        f"{time.perf_counter() - t:.1f} s; config canvas "
+        f"{config.canvas_size}, LSTM {config.rnn_units}, latent "
+        f"{config.vae_latent_dimensions}, {config.max_steps} steps, "
+        f"st_impl={config.st_impl}")
+    state0 = create_train_state(config, seed=0, device=DEVICE)
+    noise = draw_noise(config, SCALED_BATCH, step_generator(0, 0, DEVICE),
+                       DEVICE)
+    m = {}
+    for impl in ("xla", "inline", "pallas"):
+        step = make_train_step(config.replace(st_impl=impl),
+                               with_grad_stats=True)
+        before = launches()
+        _, m[impl] = step(state0, images, digits, noise=noise)
+        torch.cuda.synchronize()
+        expect_launches(before, want_kernels(impl, config.max_steps)
+                        if impl in PATHS else {}, f"scaled step 0 ({impl})")
+        del step
+        if impl in PATHS:
+            say("configs", card_line, f"scaled step 0 through the {impl} "
+                f"kernels vs plain path: "
+                + against_plain(impl, m[impl], m["xla"]))
+    del m
+
+    per_step = want_kernels("inline", config.max_steps)
+    train_step = make_train_step(config)
+    state, losses, recons = state0, [], []
+    reset_launches()
+    for _ in range(SCALED_STEPS):
+        state, metrics = train_step(state, images, digits)
+        losses.append(float(metrics["loss"]))
+        recons.append(float(metrics["reconstruction_loss"]))
+    expect_launches({k: 0 for k in launches()},
+                    {k: SCALED_STEPS * v for k, v in per_step.items()},
+                    f"{SCALED_STEPS} eager scaled steps")
+    eager = (losses, digest(tree_leaves(state.params)))
+    del state, train_step
+
+    multi = make_multi_step(config, SCALED_STEPS, SCALED_BATCH)
+    perm = torch.arange(SCALED_BATCH, device=DEVICE)
+    reset_launches()
+    (state, m1), first_ms, pool_mib = reserved_by(
+        lambda: multi(state0, images, digits, perm, 0, num_steps=1))
+    state, m2 = multi(state, images, digits, perm, 1,
+                      num_steps=SCALED_STEPS - 1)
+    torch.cuda.synchronize()
+    main_launches = {k: SCALED_STEPS * v for k, v in per_step.items()}
+    expect_launches({k: 0 for k in launches()}, main_launches,
+                    f"{SCALED_STEPS} captured scaled steps")
+    captured = (torch.cat([m1["loss"], m2["loss"]]).tolist(),
+                digest(tree_leaves(state.params)))
+    if captured != eager:
+        fail(f"scaled: {SCALED_STEPS} captured steps part from the eager "
+             f"ones (params {captured[1]} vs {eager[1]})")
+    first = float(np.mean(recons[:SCALED_MEAN_OF]))
+    last = float(np.mean(recons[-SCALED_MEAN_OF:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        fail(f"scaled: mean reconstruction loss of the last {SCALED_MEAN_OF} "
+             f"steps {last} not below that of the first {SCALED_MEAN_OF} "
+             f"{first}, or a loss is not finite")
+    params = tree_unflatten(state.params,
+                            [t.clone() for t in tree_leaves(state.params)])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, state)
+        test = os.path.join(tmp, "scaled.airrec")
+        write_records(test, images.cpu().numpy(), digits.cpu().numpy())
+        reset_launches()
+        result = eval_cli(["--model-path", path, "--test-data", test,
+                           "--batch-size", str(SCALED_BATCH),
+                           *SCALED_FLAGS[:6]])
+    expect_launches({k: 0 for k in launches()},
+                    {k: config.max_steps for k in PATHS["inline"][0]},
+                    "eval_checkpoint of the scaled step's checkpoint")
+    say("configs", card_line, "scaled: python -m air_tpu_torch."
+        f"eval_checkpoint {' '.join(SCALED_FLAGS[:6])} on the "
+        f"{SCALED_BATCH} canvases (kernels 1-2 {config.max_steps} times "
+        "each): " + json.dumps({k: v for k, v in result.items()
+                                if k != "checkpoint"}))
+    holder = [state]
+
+    def step():
+        holder[0] = multi(holder[0], images, digits, perm, 0,
+                          num_steps=1)[0]
+
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    timed = {"ms": start.elapsed_time(end) / 10, **profiled_window(step)}
+    say("configs", card_line, f"scaled: {SCALED_STEPS} captured steps "
+        f"(batch {SCALED_BATCH}) bit-equal to {SCALED_STEPS} eager ones "
+        f"(losses, params_sha256={captured[1]}); launches={main_launches} "
+        f"({config.max_steps} a step each); loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, reconstruction loss mean of first "
+        f"{SCALED_MEAN_OF} {first:.3f}, last {SCALED_MEAN_OF} {last:.3f}; "
+        f"{timed['ms']:.3f} ms/step (CUDA "
+        f"events, 10 steps), {SCALED_BATCH / timed['ms'] * 1e3:.1f} "
+        f"images/s; " + busy_line(timed) + f"; first call (the capture) "
+        f"{first_ms:.1f} ms, memory reserved by it (slots and the graph's "
+        f"pool) {pool_mib:+.1f} MiB")
+    del multi, holder, state
+    return main_launches, config, params, images.cpu().numpy()
+
+
+def check_harder(card_line: str) -> tuple:
+    """Phase 13 (c): the harder configuration through the generator, the
+    trainer (as phase 7 runs it, with HARDER_FLAGS) and the eval CLI.
+    Returns (the trainer's main-run launches, its config, its trained
+    params, its held-out canvases and digit counts)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "harder")
+        t = time.perf_counter()
+        out = io.StringIO()
+        argv = [*HARDER_DATA, "--images-per-digit", str(HARDER_PER_STRATUM),
+                "--test-set-size", str(HARDER_TEST), "--out-folder", data]
+        with contextlib.redirect_stdout(out):
+            generate_multi_mnist.main(argv)
+        say("configs", card_line, "harder: python -m air_tpu_torch."
+            f"generate_multi_mnist {' '.join(argv[:-2])} in "
+            f"{time.perf_counter() - t:.1f} s: "
+            + "; ".join(out.getvalue().strip().splitlines()[-2:]))
+        log = os.path.join(tmp, "harder.log")
+        try:
+            main_launches, trainer = trainer_and_resume(
+                "configs", data, HARDER_FLAGS, tmp, log, card_line)
+        except BaseException:
+            show_log(log)
+            raise
+        test = os.path.join(data, "test.airrec")
+        reset_launches()
+        result = eval_cli(["--model-path", trainer.models_dir, "--test-data",
+                           test, "--max-steps", "5", "--max-digits", "3"])
+        expect_launches({k: 0 for k in launches()},
+                        {k: trainer.config.max_steps
+                         for k in PATHS["inline"][0]},
+                        "eval_checkpoint of the harder run")
+        say("configs", card_line, "harder: python -m air_tpu_torch."
+            "eval_checkpoint --max-steps 5 --max-digits 3 on its held-out "
+            f"set (kernels 1-2 {trainer.config.max_steps} times each): "
+            + json.dumps({k: v for k, v in result.items()
+                          if k != "checkpoint"}))
+        canvases, truth = load_test_data(test)
+    return (main_launches, trainer.config, trainer.state.params, canvases,
+            truth)
+
+
+def check_config_serving(name: str, config, params, canvases, sizes,
+                         card_line: str) -> None:
+    """Phase 13 (d): ModelWrapper.infer at ``config`` on trained ``params``
+    (the port's tree): through kernels 1-2 (the scan layout) against the
+    plain path, reconstructions to PATH_TOL and digit counts equal; the
+    wrapper's default (step-parallel, no kernel) against the same;
+    latencies for each of ``sizes`` canvases."""
+    jparams = params_to_jax(params)
+    kern = ModelWrapper(config.replace(st_impl="inline"), jparams, seed=0,
+                        decoder_layout="scan", device=DEVICE)
+    plain = ModelWrapper(config.replace(st_impl="xla"), jparams, seed=0,
+                         decoder_layout="scan", device=DEVICE)
+    default = ModelWrapper(config.replace(st_impl="xla"), jparams, seed=0,
+                           device=DEVICE)
+    requests = [canvases[np.arange(n) % len(canvases)] for n in sizes]
+    fwd = PATHS["inline"][0]
+    reset_launches()
+    served = []
+    for req in requests:
+        before = launches()
+        served.append(kern.infer(req))
+        expect_launches(before, {k: config.max_steps for k in fwd},
+                        f"{name}: one infer call of {len(req)} canvases")
+    reset_launches()
+    defaults = [default.infer(req) for req in requests]
+    torch.cuda.synchronize()
+    expect_launches({k: 0 for k in launches()}, {},
+                    f"{name}: step-parallel serving")
+    errs = {"kernels": 0.0, "step-parallel": 0.0}
+    for req, got, sp in zip(requests, served, defaults):
+        want = plain.infer(req)
+        for what, out in (("kernels", got), ("step-parallel", sp)):
+            if list(out[0]) != list(want[0]):
+                fail(f"{name}: digit counts through the {what} path differ "
+                     f"from the plain scan's on {len(req)} canvases")
+            if not all(np.all(np.isfinite(r)) for r in out[2]):
+                fail(f"{name}: non-finite reconstructions ({what})")
+            errs[what] = max(errs[what], max(
+                float(np.max(np.abs(a - b))) for a, b in zip(out[2],
+                                                             want[2])))
+    if not all(e <= PATH_TOL for e in errs.values()):
+        fail(f"{name}: reconstructions differ from the plain scan's by "
+             f"{errs}")
+    lat = {label: {n: infer_latency(w, canvases, n) for n in sizes}
+           for label, w in (("kernels", kern), ("step-parallel", default))}
+    say("configs", card_line, f"serve {name} (T={config.max_steps}, canvas "
+        f"{config.canvas_size}): requests {list(sizes)}, kernels 1-2 "
+        f"{config.max_steps} times an infer through the scan layout, 0 at "
+        f"the wrapper's default (step-parallel); digit counts equal to the "
+        f"plain scan's, reconstructions vs it max abs "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {PATH_TOL}); infer latency median of 10: "
+        + "; ".join(f"{label} " + ", ".join(f"{n}: {ms:.3f} ms"
+                                            for n, ms in t.items())
+                    for label, t in lat.items())
+        + f"; reconstructions_sha256="
+        f"{digest(r for got in served for r in got[2])}")
+
+
+def check_configs(libs: dict, card_line: str) -> tuple:
+    """Phase 13. Returns (phase (a)'s kernel times, the launches of (b)'s
+    captured run and (c)'s trainer run, summed)."""
+    times = check_scaled_kernels(libs, card_line)
+    scaled_launches, config, params, canvases = check_scaled_train(card_line)
+    check_config_serving("scaled", config, params, canvases,
+                         (1, BATCH, SCALED_BATCH), card_line)
+    del params
+    harder_launches, config, params, canvases, _ = check_harder(card_line)
+    check_config_serving("harder", config, params, canvases, (1, BATCH),
+                         card_line)
+    return times, {k: scaled_launches.get(k, 0) + harder_launches.get(k, 0)
+                   for k in KERNELS}
+
+
 def grad_errors(got, want, placements=None, model_rank=0) -> float:
     """The largest |got - want| / max(1, max |want leaf|) over two gradient
     trees (phase 5's measure); a leaf ``placements`` marks sharded is held
@@ -2330,30 +2863,7 @@ def main() -> None:
         f"{time.perf_counter() - t_build:.1f} s")
 
     # 3. kernels against their plain versions
-    err = {k: 0.0 for k in KERNELS}
-    scalar_err = {k: 0.0 for k in KERNELS}
-    for b in (BATCH, 1, 7):
-        d = kernel_inputs(b, seed=b)
-        e_in = core_inputs(d, seed=100 + b)
-        for kname, (got_fn, want_fn, n_mat) in KERNELS.items():
-            got = got_fn(d, e_in)
-            torch.cuda.synchronize()
-            want = want_fn(d, e_in)
-            torch.cuda.synchronize()
-            mat, scal = errors(got, want, n_mat)
-            err[kname] = max(err[kname], mat)
-            scalar_err[kname] = max(scalar_err[kname], scal)
-            if not (mat <= KERNEL_TOL and scal <= SCALAR_TOL):
-                fail(f"{kname} at B={b}: matrix max abs diff {mat} (tol "
-                     f"{KERNEL_TOL}), scalar rel diff {scal} (tol "
-                     f"{SCALAR_TOL})")
-    say("kernels", card_line, "kernel vs plain max abs diff "
-        + " ".join(f"{k}={v:.3g}" for k, v in err.items())
-        + f" (tol {KERNEL_TOL}); backward scalar cotangents |diff| / "
-        "max(1, |plain|) "
-        + " ".join(f"{k}={v:.3g}" for k, v in scalar_err.items()
-                   if k.endswith("_bwd"))
-        + f" (tol {SCALAR_TOL}); B=64,1,7")
+    err = kernel_errors((BATCH, 1, 7), CS, WS, 0, "kernels", card_line)
 
     # 4. serving the shipped CNN checkpoint, through each path's kernels
     params = load_params(CKPT)
@@ -2376,9 +2886,7 @@ def main() -> None:
         train_launches.update(got)
 
     # 6. times at B = 64
-    d = kernel_inputs(BATCH, seed=1234)
-    e_in = core_inputs(d, seed=4321)
-    lib = Library(d, e_in)
+    sets = input_sets(BATCH, 1234, 4321)
     rows = []
     for kname, source, replaces in (
             ("inline_attention_read", "st_inline.cu", "st_inline.py:222"),
@@ -2388,41 +2896,26 @@ def main() -> None:
             ("fused_write_accumulate", "st_fused.cu", "st_fused.py:52"),
             ("fused_write_accumulate_bwd", "st_fused.cu", "st_fused.py:63"),
             ("pallas_attention_read", "st_pallas.cu", "st_pallas.py:41")):
-        fn, plain_fn, _ = KERNELS[kname]
-        ms = device_ms(lambda: fn(d, e_in))
-        plain_ms = device_ms(lambda: plain_fn(d, e_in))
-        library_ms = lib.ms(kname)
-        nbytes, flops = costs(BATCH)[kname]
-        b_ms, b_by = bound_ms(nbytes, flops)
+        t = kernel_times(kname, sets)
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"air_tpu_torch/kernels/csrc/{source}",
             "replaces": f"air_tpu/kernels/{replaces}",
             "launches": train_launches[kname], "max_abs_err": err[kname],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms})
-        say("times", card_line, f"{kname} B={BATCH}: ms={ms:.5f} "
-            f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-            f"bound_ms={b_ms:.6f} ({b_by}; {nbytes} B, {flops} FLOP)")
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
+        say("times", card_line, f"{kname} B={BATCH}: " + times_line(t))
     # every kernel (the streamed-weight resample in both directions, the
     # streamed-weight write-accumulate forward and backward, the inline read,
     # write, read backward and write backward) at B = 1, 64, 256 and 1024,
     # each beside its library chain and its bound
+    del sets
     for b in SWEEP_BATCHES:
-        db = kernel_inputs(b, seed=2000 + b)
-        eb = core_inputs(db, seed=3000 + b)
-        lib_b = Library(db, eb)
+        sets = input_sets(b, 2000 + b, 3000 + b)
         for kname in SWEPT:
-            fn, plain_fn, _ = KERNELS[kname]
-            ms = device_ms(lambda: fn(db, eb))
-            library_ms = lib_b.ms(kname)
-            plain_ms = device_ms(lambda: plain_fn(db, eb))
-            nbytes, flops = costs(b)[kname]
-            b_ms, b_by = bound_ms(nbytes, flops)
-            say("times", card_line, f"{kname} B={b}: ms={ms:.5f} "
-                f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-                f"ms/library={ms / library_ms:.3f} bound_ms={b_ms:.6f} "
-                f"({b_by}; {nbytes} B, {flops} FLOP)")
+            say("times", card_line, f"{kname} B={b}: "
+                + times_line(kernel_times(kname, sets)))
+        del sets
 
     for impl, wrapper in wrappers.items():
         lat = {}
@@ -2497,6 +2990,13 @@ def main() -> None:
     for row in rows:
         row["unrolled_launches"] = unrolled_launches.get(row["name"], 0)
         row["real_launches"] = real_launches.get(row["name"], 0)
+
+    # 13. the scaled and the harder configurations
+    scaled_times, config_launches = check_configs(libs, card_line)
+    for row in rows:
+        row["configs_launches"] = config_launches.get(row["name"], 0)
+        row.update({f"scaled_{k}": scaled_times[row["name"]][k]
+                    for k in ("ms", "bound_ms", "library_ms")})
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

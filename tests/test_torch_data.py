@@ -233,6 +233,11 @@ GENERATOR_CASES = {
     "bbox-margin-background": dict(use_bounding_box_overlap=True,
                                    canvas_margin=1, bg_kind="blobs",
                                    bg_max_intensity=0.3),
+    # BASELINE configs 4 and 3: the scaled model's canvas, and the harder
+    # scenes' 0-3 digits on the bg-0.6 noise texture
+    "canvas-100": dict(canvas_size=100),
+    "max-3-digits-noise": dict(max_digits=3, bg_kind="noise",
+                               bg_max_intensity=0.6),
 }
 
 

@@ -8,9 +8,9 @@ Tolerances: against JAX, the losses 1e-4 relative, as one train step
 absolute. Against the port's eager step: bit for bit, the slots hold the
 values the eager step computes and the body is the same.
 
-The gpu-marked test, the one test of this file that runs where JAX is not
-installed, captures the step on the card and holds its replays to the
-eager step's bits:
+The gpu-marked tests, the ones of this file that run where JAX is not
+installed, capture the step on the card (at SMALL, and at BASELINE config
+4's widths) and hold its replays to the eager step's bits:
 
     python -m pytest --noconftest -m gpu tests/test_torch_fast_pipeline.py
 """
@@ -93,14 +93,15 @@ def clone_state(state):
             nu=tree_map(torch.clone, state.opt_state.nu)))
 
 
-def eager_steps(cfg, state, images, digits, perm, start, k, **kw):
+def eager_steps(cfg, state, images, digits, perm, start, k, batch=B,
+                **kw):
     """k eager train steps on batches start.. of perm, gathered (and
     clamped) as the device-data loop gathers them: (state, [k] metrics)."""
     step = make_train_step(cfg, **kw)
     metrics = []
     for i in range(k):
-        lo = min((start + i) * B, len(images) - B)
-        rows = perm[lo:lo + B]
+        lo = min((start + i) * batch, len(images) - batch)
+        rows = perm[lo:lo + batch]
         state, m = step(state, images[rows], digits[rows])
         metrics.append(m)
     return state, {name: torch.stack([m[name] for m in metrics])
@@ -508,3 +509,29 @@ def test_unrolled_graph_on_the_card():
     assert_same_state(runs[3][0], runs[1][0])
     assert_same_metrics(runs[3][1], runs[1][1])
 
+
+
+@pytest.mark.gpu
+def test_captured_scaled_step_on_the_card():
+    """On the card, at BASELINE config 4's widths (canvas 100, LSTM 512,
+    VAE latent 100, the CNN; kernels 1-4 on their run-time-size path): K
+    captured steps at batch 256 give the eager steps' bits, max_steps
+    launches of kernels 1-4 a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from air_tpu_torch.kernels import st_inline
+    from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
+    cfg = DEFAULT_TRAINING_CONFIG.replace(
+        cnn=True, canvas_size=100, rnn_units=512, vae_latent_dimensions=100,
+        st_impl="inline")
+    n, b = 512, 256
+    images, digits = (t.cuda() for t in _data(2, n, cfg.canvas_size))
+    perm = torch.arange(n, device="cuda")
+    state0 = create_train_state(cfg, seed=0, device="cuda")
+    st_inline.reset_launches()
+    state, m = make_multi_step(cfg, K, b)(state0, images, digits, perm, 0)
+    torch.cuda.synchronize()
+    assert set(st_inline.LAUNCHES.values()) == {K * cfg.max_steps}
+    want, wm = eager_steps(cfg, state0, images, digits, perm, 0, K, b)
+    assert_same_metrics(m, wm)
+    assert_same_state(state, want)

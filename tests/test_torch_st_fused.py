@@ -45,6 +45,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 SHAPES = [(20, 8), (50, 28)]
 BATCHES = [1, 7, 12, 64]
+# each batch at each shape, and the scaled configuration's canvas 100
+TWIN_CASES = [(b, cs, ws) for b in BATCHES for cs, ws in SHAPES] + [
+    (3, 100, 28)]
 NAMES = ("canvas", "windows", "s", "x", "y", "coeff")
 # the forward's launch geometry: the tests' and the model's shapes, cs 100,
 # and an odd shape whose ranges are not 16-byte multiples (4-byte copies)
@@ -92,8 +95,7 @@ def _close_per_batch(got, want, tol=1e-4):
     assert err <= tol * max(1.0, float(np.max(np.abs(want)))), err
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_matches_tpu_kernels(b, cs, ws, same_grid):
     """Values and the gradients of canvas, windows, s, x, y and coeff."""
     d = _inputs(b, cs, ws, seed=b)
@@ -118,8 +120,7 @@ def test_matches_tpu_kernels(b, cs, ws, same_grid):
             _close_per_batch(gg.numpy(), ww)
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_core_backward_matches_tpu_kernel(b, cs, ws):
     """(d_win, d_Wy, d_Wx, d_coeff) of the backward against jax.vjp of
     _wmac_core, on the same weight matrices."""

@@ -38,6 +38,9 @@ except ImportError:
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPES = [(30, 12), (50, 28)]
+# each batch at each shape, and the scaled configuration's canvas 100
+TWIN_CASES = [(b, cs, ws) for b in (1, 5, 7) for cs, ws in SHAPES] + [
+    (3, 100, 28)]
 # the read backward's launch geometry: the tests' and the model's shapes,
 # cs 100, and an odd shape whose ranges are not 16-byte multiples
 GEOMETRY_SHAPES = [(20, 8), (50, 28), (100, 28), (21, 7)]
@@ -80,8 +83,7 @@ def _cotangents(b, cs, ws, seed):
             rng.uniform(-1.0, 1.0, (b, cs * cs)).astype(np.float32))
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", [1, 5, 7])
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_read_matches_tpu_kernel(b, cs, ws):
     d = _inputs(b, cs, ws, seed=b)
     want = jax_read(jnp.asarray(d["images"]), jnp.asarray(d["s"]),
@@ -94,8 +96,7 @@ def test_read_matches_tpu_kernel(b, cs, ws):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", [1, 5, 7])
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_write_accumulate_matches_tpu_kernel(b, cs, ws):
     d = _inputs(b, cs, ws, seed=10 + b)
     want = jax_write(*(jnp.asarray(d[k]) for k in
@@ -108,8 +109,7 @@ def test_write_accumulate_matches_tpu_kernel(b, cs, ws):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", [1, 5, 7])
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_read_grads_match_tpu_kernel(b, cs, ws):
     """d_images, d_s, d_x, d_y through the read Function (plain backward on
     CPU tensors) against jax.vjp of the TPU kernels."""
@@ -129,8 +129,7 @@ def test_read_grads_match_tpu_kernel(b, cs, ws):
         _close_per_batch(gg.numpy(), ww)
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", [1, 5, 7])
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_write_grads_match_tpu_kernel(b, cs, ws):
     """d_canvas (= g), d_windows, d_s, d_x, d_y, d_coeff through the write
     Function against jax.vjp of the TPU kernels."""

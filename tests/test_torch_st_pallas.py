@@ -52,6 +52,9 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 SCALARS = ("s", "x", "y")
 SHAPES = [(20, 8), (50, 28)]
 BATCHES = [1, 3, 7]
+# each batch at each shape, and the scaled configuration's canvas 100
+TWIN_CASES = [(b, cs, ws) for b in BATCHES for cs, ws in SHAPES] + [
+    (3, 100, 28)]
 # the launch geometry: the tests' and the model's shapes, cs 100, and an odd
 # shape whose ranges are not 16-byte multiples (the 4-byte copy path)
 GEOMETRY_SHAPES = [(20, 8), (50, 28), (100, 28), (21, 7)]
@@ -113,8 +116,7 @@ def _vjp_case(d, names, jax_fn, port_fn, size, g):
     return (np.asarray(out), want), (got_out.detach().numpy(), got)
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_read_matches_tpu_kernel(b, cs, ws, same_grid):
     d = _inputs(b, cs, ws, seed=b)
     g = np.random.default_rng(100 + b).normal(size=(b, ws, ws)).astype(
@@ -127,8 +129,7 @@ def test_read_matches_tpu_kernel(b, cs, ws, same_grid):
     _assert_grads(("images", "s", "x", "y"), got, want)
 
 
-@pytest.mark.parametrize("cs,ws", SHAPES)
-@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("b,cs,ws", TWIN_CASES)
 def test_write_matches_tpu_kernel(b, cs, ws, same_grid):
     d = _inputs(b, cs, ws, seed=10 + b)
     g = np.random.default_rng(110 + b).normal(size=(b, cs, cs)).astype(
