@@ -232,6 +232,34 @@ line with the card's name and power limit as nvidia-smi reports them:
               default, against the plain scan (reconstructions to
               PATH_TOL, digit counts equal), with latencies for 1 and 64
               canvases (and 1024 scaled).
+ 14. sweep    (a) the card's draws: every draw kind of the robust default's
+              forward pass (scale, shift, vae_latent, vae_out ~ N(0, 1),
+              z_pres_u ~ U(0, 1)) from ``step_generator(seed, step,
+              "cuda")`` over DRAW_STEPS steps at batch 64: moments within
+              5 standard errors of the law, one-sample Kolmogorov-Smirnov
+              tests against the law and two-sample ones against the CPU
+              generator's draws at p > DRAW_P_MIN; the Concrete's logistic
+              noise from the card's uniforms at both tails (frequencies
+              of |L| > 2, 4, 6 against the logistic law, every value
+              within its saturation); no correlation (|r| < 5 / sqrt(n))
+              between consecutive steps', consecutive seeds', a stall
+              restart's and the eval stream's draws; the seed-parallel
+              replicas draw their single-seed streams bit for bit, and a
+              redraw of one (seed, step) repeats it. (b) ``python -m
+              air_tpu_torch.seed_sweep_single`` (the sequential sweep, the
+              trainer's device-data loop through kernels 1-4) for
+              SINGLE_SEEDS at the robust default's full width on a set
+              generated from the committed pool, SINGLE_ITERS steps each
+              with evals every SINGLE_EVERY, one seed with
+              ``--temp-anneal`` and one with ``--scale-prior-curriculum``
+              (the sweep's main run): kernels 1-4 launch max_steps times
+              per forward pass the trainers ran and no other kernel does;
+              results.jsonl holds each seed's in-flight row, then its
+              result row; ``python -m air_tpu_torch.summarize_sweep``
+              shows the results superseding the in-flight rows (and a
+              seed left in flight marked so), alone and as a ``path:tag``
+              union; ``python -m air_tpu_torch.ledger`` extracts each
+              run's evals and final accuracy.
 
 Then a JSON line of the kernels, the nvidia-smi line and, last, the result
 line {"ok": true, "device": {...}}. Any failure exits non-zero before the
@@ -260,7 +288,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from air_tpu_torch import eval_checkpoint, generate_multi_mnist, training
+from air_tpu_torch import (eval_checkpoint, generate_multi_mnist, ledger,
+                           training)
 from air_tpu_torch.data import (MultiMNISTConfig, generate_dataset,
                                 load_digit_pool, load_test_data)
 from air_tpu_torch.data.png import read_png_grey
@@ -268,6 +297,7 @@ from air_tpu_torch.data.records import write_records
 from air_tpu_torch.interop import params_to_jax
 from air_tpu_torch.kernels import build, st_fused, st_inline, st_pallas
 from air_tpu_torch.models.air import draw_noise
+from air_tpu_torch.ops.concrete import logistic_noise
 from air_tpu_torch.models.config import DEFAULT_TRAINING_CONFIG
 from air_tpu_torch.ops.transformer import _axis_weight_matrix
 from air_tpu_torch.parallel.collectives import take_slice
@@ -287,13 +317,15 @@ from air_tpu_torch.train.metrics import summarize_outputs
 from air_tpu_torch.train.state import create_train_state, global_norm
 from air_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                        step_generator)
-from air_tpu_torch.train.multi_seed import (create_multi_seed_state,
+from air_tpu_torch.train.multi_seed import (EVAL_SEED,
+                                            create_multi_seed_state,
                                             make_multi_seed_step,
                                             make_replica_step,
                                             multi_seed_perms, reinit_replica,
                                             replica_batch, replica_gradients,
                                             replica_noise)
-from air_tpu_torch.train.trainer import Trainer
+from air_tpu_torch.train import trainer as trainer_module
+from air_tpu_torch.train.trainer import Trainer, attempt_seed
 from air_tpu_torch.tree import (path_name, tree_leaves, tree_leaves_with_path,
                                 tree_unflatten)
 from air_tpu_torch.utils.profiling import StepTimer
@@ -407,6 +439,13 @@ HARDER_DATA = ["--max-digits", "3", "--max-in-common", "3",
                "--bg-kind", "noise", "--bg-max-intensity", "0.6"]
 HARDER_PER_STRATUM = 150     # 0-3 digits: 600 canvases, 100 held out
 HARDER_TEST = 100
+DRAW_STEPS = 200             # (seed, step) streams of phase 14 (a)
+DRAW_KEEP = {"scale": DRAW_STEPS, "shift": DRAW_STEPS,
+             "z_pres_u": DRAW_STEPS, "vae_latent": 20, "vae_out": 2}
+DRAW_P_MIN = 1e-3
+SINGLE_SEEDS = ((0, "--temp-anneal"), (1, "--scale-prior-curriculum"))
+SINGLE_ITERS = 300
+SINGLE_EVERY = 100
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20      # the H100's L2 cache
@@ -2838,6 +2877,186 @@ def check_sweep(data: str, tmp: str, card_line: str) -> None:
         f"{seconds:.1f} s")
 
 
+def card_draws(seed: int, step: int, device: str | None = None) -> dict:
+    """Every draw of one robust-default forward pass at batch 64 from
+    ``step_generator(seed, step)`` on ``device`` (the card's by default)."""
+    cfg = DEFAULT_TRAINING_CONFIG.replace(cnn=True)
+    device = device or DEVICE
+    return draw_noise(cfg, BATCH, step_generator(seed, step, device),
+                      device)
+
+
+def flat_draws(d: dict) -> np.ndarray:
+    return torch.cat([d[k].reshape(-1) for k in DRAW_KEEP]).double().cpu(
+        ).numpy()
+
+
+def check_draws(card_line: str) -> None:
+    """Phase 14 (a): the card's draws against the law, the CPU generator's
+    draws, each other and the seed-parallel replicas."""
+    from scipy import stats
+    t = time.perf_counter()
+    on_card = [card_draws(0, s) for s in range(DRAW_STEPS)]
+    cpu = [card_draws(0, s, "cpu") for s in range(DRAW_STEPS)]
+    lines = []
+    for kind, n_steps in DRAW_KEEP.items():
+        x = torch.stack([d[kind] for d in on_card[:n_steps]]).double().cpu(
+            ).numpy().ravel()
+        ref = torch.stack([d[kind] for d in cpu[:n_steps]]).double().numpy(
+            ).ravel()
+        law = stats.uniform() if kind == "z_pres_u" else stats.norm()
+        mean, var = law.mean(), law.var()
+        m4 = (law.moment(4) - 4 * mean * law.moment(3)
+              + 6 * mean ** 2 * law.moment(2) - 3 * mean ** 4)
+        n = x.size
+        z_mean = (x.mean() - mean) / np.sqrt(var / n)
+        z_var = (x.var() - var) / np.sqrt((m4 - var ** 2) / n)
+        p_law = stats.kstest(x, law.cdf).pvalue
+        p_cpu = stats.ks_2samp(x, ref).pvalue
+        if (abs(z_mean) >= 5 or abs(z_var) >= 5 or p_law <= DRAW_P_MIN
+                or p_cpu <= DRAW_P_MIN
+                or (kind == "z_pres_u" and not 0.0 <= x.min() <= x.max()
+                    < 1.0)):
+            fail(f"draws: {kind} on the card, n={n}: mean {x.mean()} "
+                 f"({z_mean:.2f} SE), var {x.var()} ({z_var:.2f} SE), KS "
+                 f"p {p_law:.3g} against the law, {p_cpu:.3g} against the "
+                 f"CPU generator")
+        lines.append(f"{kind} n={n} mean {z_mean:+.2f} SE var {z_var:+.2f} "
+                     f"SE KS p {p_law:.3f} (law) {p_cpu:.3f} (CPU)")
+    u = torch.stack([d["z_pres_u"] for d in on_card])
+    noise = logistic_noise(u).double().cpu().numpy().ravel()
+    tails = []
+    for tail in (2.0, 4.0, 6.0):
+        p = 2.0 / (1.0 + np.exp(tail))
+        got = float(np.mean(np.abs(noise) > tail))
+        if abs(got - p) >= 5 * np.sqrt(p * (1 - p) / noise.size) \
+                + 1.0 / noise.size:
+            fail(f"draws: P(|L| > {tail}) = {got} on the card, logistic "
+                 f"law {p}")
+        tails.append(f"P(|L|>{tail:g}) {got:.5f} (law {p:.5f})")
+    if not (np.all(np.isfinite(noise)) and np.abs(noise).max() < 21.0
+            and stats.kstest(noise, stats.logistic().cdf).pvalue
+            > DRAW_P_MIN):
+        fail(f"draws: the card's logistic noise spans {noise.min()} .. "
+             f"{noise.max()}")
+    pairs = {"consecutive steps": ((0, 7), (0, 8)),
+             "consecutive seeds": ((3, 5), (4, 5)),
+             "attempt_seed": ((3, 5), (attempt_seed(3, 1), 5)),
+             "eval stream": ((4, 2500), (4 ^ EVAL_SEED, 2500))}
+    corr = []
+    for what, ((sa, ka), (sb, kb)) in pairs.items():
+        a, b = (flat_draws(card_draws(s_, k_)) for s_, k_ in
+                ((sa, ka), (sb, kb)))
+        r = float(np.corrcoef(a, b)[0, 1])
+        if not abs(r) < 5 / np.sqrt(a.size):
+            fail(f"draws: {what} correlate on the card, r = {r}")
+        corr.append(f"{what} r={r:+.5f}")
+    cfg = DEFAULT_TRAINING_CONFIG.replace(cnn=True)
+    seeds, steps = [0, 1, attempt_seed(1, 1)], torch.tensor([7, 7, 0])
+    stacked = replica_noise(cfg, BATCH, seeds, steps, DEVICE)
+    for r, (seed, step) in enumerate(zip(seeds, steps.tolist())):
+        again = card_draws(seed, step)
+        if not all(torch.equal(stacked[k][r], again[k]) for k in again):
+            fail(f"draws: replica {r} of the seed-parallel step is not "
+                 f"step_generator({seed}, {step})'s stream")
+    torch.cuda.synchronize()
+    say("sweep", card_line, f"(a) draws of step_generator on the card, "
+        f"{DRAW_STEPS} steps at batch {BATCH}: " + "; ".join(lines)
+        + "; logistic noise " + ", ".join(tails) + f" over {noise.size}; "
+        + ", ".join(corr) + "; the replicas draw their single-seed streams "
+        f"bit for bit; {time.perf_counter() - t:.1f} s")
+
+
+class RecordedTrainer(Trainer):
+    """The trainer, keeping every instance made (the sweep makes its own)."""
+    made: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        RecordedTrainer.made.append(self)
+
+
+def check_sweep_single(card_line: str) -> dict:
+    """Phase 14 (b). Returns the inline kernels' launches of the sweep."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pool, labels = load_digit_pool()
+        data = os.path.join(tmp, "data")
+        generate_dataset(pool, labels, MultiMNISTConfig(
+            images_per_digit=TRAINER_PER_STRATUM, test_set_size=TRAINER_TEST,
+            seed=0), out_dir=data)
+        out = os.path.join(tmp, "sweep")
+        results = os.path.join(out, "results.jsonl")
+        RecordedTrainer.made = []
+        saved = trainer_module.Trainer
+        trainer_module.Trainer = RecordedTrainer
+        t = time.perf_counter()
+        reset_launches()
+        try:
+            stdout = [run_cli([
+                "air_tpu_torch.seed_sweep_single", str(seed), "--cnn", flag,
+                "--data", data, "--out", out, "--max-iters",
+                str(SINGLE_ITERS), "--eval-every", str(SINGLE_EVERY),
+                "--device", DEVICE]) for seed, flag in SINGLE_SEEDS]
+        finally:
+            trainer_module.Trainer = saved
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        now = launches()
+        fwd, bwd = PATHS["inline"]
+        want = {k: 0 for k in now}
+        for tr in RecordedTrainer.made:
+            t_ = tr.config.max_steps
+            steps = tr.calls["train"] + tr.calls["grad"]
+            for k in fwd:
+                want[k] += t_ * (steps + tr.calls["eval"])
+            for k in bwd:
+                want[k] += t_ * steps
+        if (now != want or len(RecordedTrainer.made) != len(SINGLE_SEEDS)
+                or any(now[k] == 0 for k in (*fwd, *bwd))):
+            fail(f"seed_sweep_single launched {now}, expected {want}")
+        with open(results) as f:
+            rows = [json.loads(line) for line in f]
+        tags = ["hold15000_cnn_temp", "hold15000_cnn_spc"]
+        want_evals = list(range(0, SINGLE_ITERS + 1, SINGLE_EVERY))
+        records_ = []
+        for i, (seed, _) in enumerate(SINGLE_SEEDS):
+            marker, row = rows[2 * i], rows[2 * i + 1]
+            folder = os.path.join(out, f"seed{seed}_{tags[i]}")
+            rec = ledger.extract(folder)
+            records_.append(rec)
+            if (not marker.get("in_flight") or row.get("in_flight")
+                    or (marker["seed"], marker["tag"]) != (seed, tags[i])
+                    or (row["seed"], row["tag"]) != (seed, tags[i])
+                    or row["final_step"] != SINGLE_ITERS
+                    or not np.isfinite(row["test_accuracy"])
+                    or f"SWEEPRESULT {json.dumps(row)}" not in stdout[i]
+                    or [s_ for s_, _ in rec["eval_trajectory"]] != want_evals
+                    or rec["final_step"] != SINGLE_ITERS
+                    or rec["final_accuracy"] != round(row["test_accuracy"],
+                                                      4)):
+                fail(f"seed_sweep_single seed {seed}: rows {rows}, ledger "
+                     f"{rec}")
+        with open(results, "a") as f:      # a third seed, cut in flight
+            f.write(json.dumps({**rows[0], "seed": 2}) + "\n")
+        table = run_cli(["air_tpu_torch.summarize_sweep", results])
+        union = run_cli(["air_tpu_torch.summarize_sweep",
+                         f"{results}:{tags[0]}", f"{results}:{tags[1]}"])
+        body = [line for line in table.splitlines()[1:] if line.strip()]
+        cut = [line for line in body if "[in flight at cut]" in line]
+        # the union keeps each seed's best row: here the same rows
+        if (len(body) != 4 or len(cut) != 1 or cut[0].split()[0] != "2"
+                or not body[-1].startswith("converged: ")
+                or "/3 " not in body[-1] or union != table):
+            fail(f"summarize_sweep:\n{table}\n{union}")
+    say("sweep", card_line, f"(b) python -m air_tpu_torch.seed_sweep_single "
+        + ", ".join(f"{s} --cnn {f}" for s, f in SINGLE_SEEDS)
+        + f": {SINGLE_ITERS} steps each in {seconds:.1f} s, launches "
+        f"{now}; rows " + json.dumps(rows[1::2]) + "; ledger evals "
+        + "; ".join(json.dumps(r["eval_trajectory"]) for r in records_)
+        + "; summarize_sweep:\n" + table.rstrip())
+    return now
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -2997,6 +3216,12 @@ def main() -> None:
         row["configs_launches"] = config_launches.get(row["name"], 0)
         row.update({f"scaled_{k}": scaled_times[row["name"]][k]
                     for k in ("ms", "bound_ms", "library_ms")})
+
+    # 14. the card's draws and the sequential sweep
+    check_draws(card_line)
+    sweep_launches = check_sweep_single(card_line)
+    for row in rows:
+        row["sweep_single_launches"] = sweep_launches.get(row["name"], 0)
 
     elapsed = time.perf_counter() - T0
     if elapsed > TIME_BUDGET_S:

@@ -39,7 +39,9 @@ PORT_MODULES = (
     "air_tpu_torch.train.evaluate", "air_tpu_torch.train.trainer",
     "air_tpu_torch.train.visualize", "air_tpu_torch.train.multi_seed",
     "air_tpu_torch.train.fast_pipeline", "air_tpu_torch.utils.profiling",
-    "air_tpu_torch.seed_sweep", "air_tpu_torch.demo",
+    "air_tpu_torch.seed_sweep", "air_tpu_torch.seed_sweep_single",
+    "air_tpu_torch.summarize_sweep", "air_tpu_torch.ledger",
+    "air_tpu_torch.demo",
     "air_tpu_torch.embeddings", "air_tpu_torch.tools.demo_tk",
     "air_tpu_torch.tools.embeddings", "air_tpu_torch.tools.headless_demo")
 
